@@ -7,34 +7,56 @@ plain versions.
 Phases, each printing one JSON line (any failure exits non-zero and
 prints no result):
 
-1. env     — the card (nvidia-smi name and power limit), torch and CUDA
-             versions; the card must be compute capability 9.0 (Hopper).
-2. build   — build the kernels from deeplearning4j_tpu_torch/csrc/.
-3. kernels — every ported kernel against its plain PyTorch version on
-             the card: the flash forward (K1) at B*H = 64, T in
-             {16, 100, 128, 1024} and Tq < Tk, hd 64 and 128, causal or
-             not; the paged decode (K4) at 8 slots, page_size 16, 64 pages
-             per slot, ragged cursors (0, ps-1, ps, the window edge, past
-             it) and an idle all-trash slot. float32 within 2e-5, bfloat16
-             within 2e-2 (unit-scale inputs; the summation order differs).
-             The float32 flash cases are also held against
-             blockwise_attention, the online-softmax plain form.
-4. parity  — the model at full width (d_model 1024, 8 heads, d_ff 4096,
-             vocab 8192) cut to 2 layers, float32: teacher-forced batched
-             prefill logits and 8 decode-step logits on the card (kernels)
-             against the same weights on the CPU (plain versions), within
-             1e-3.
-5. serve   — the main path at full width: the 8-layer 110M-parameter LM
-             in bfloat16 behind InferenceEngine.for_transformer(...,
-             decode_slots=8, page_size=16), 16 requests with prompt lengths
-             in [16, 768] drawn from the seed, 64 new tokens each. Every
-             stream must finish, every page must come back, and both
-             kernels must have been launched on this path.
+1. env          — the card (nvidia-smi name and power limit), torch and
+                  CUDA versions; the card must be compute capability 9.0
+                  (Hopper).
+2. build        — build the kernels from deeplearning4j_tpu_torch/csrc/.
+3. kernels      — every ported kernel against its plain PyTorch version on
+                  the card: the flash forward (K1) at B*H = 64, T in
+                  {16, 100, 128, 1024} and Tq < Tk, hd 64 and 128, causal
+                  or not; the paged decode (K4) at 8 slots, page_size 16,
+                  64 pages per slot, ragged cursors (0, ps-1, ps, the
+                  window edge, past it) and an idle all-trash slot.
+                  float32 within 2e-5, bfloat16 within 2e-2 (unit-scale
+                  inputs; the summation order differs). The float32 flash
+                  cases are also held against blockwise_attention, the
+                  online-softmax plain form. Then the flash backward, dQ
+                  (K2) and dK/dV (K3), with an lse cotangent, at the same
+                  B*H, hd, causal settings and shapes plus Tq > Tk (rows
+                  that see no key): within 1e-4 (float32) and 3e-2
+                  (bfloat16) of the largest |plain| value, and in float32
+                  also against torch.autograd.grad of blockwise_attention.
+4. parity       — the model at full width (d_model 1024, 8 heads, d_ff
+                  4096, vocab 8192) cut to 2 layers, float32:
+                  teacher-forced batched prefill logits and 8 decode-step
+                  logits on the card (kernels) against the same weights on
+                  the CPU (plain versions), within 1e-3.
+5. serve        — the serving path at full width: the 8-layer
+                  110M-parameter LM in bfloat16 behind
+                  InferenceEngine.for_transformer(..., decode_slots=8,
+                  page_size=16), 16 requests with prompt lengths in
+                  [16, 768] drawn from the seed, 64 new tokens each. Every
+                  stream must finish, every page must come back, and both
+                  kernels must have been launched on this path.
+6. train_parity — full width cut to 2 layers, float32, 2 x 301 tokens:
+                  lm_loss and every gradient leaf on the card (K1 with its
+                  lse, K2, K3) against the same weights on the CPU (plain
+                  versions), then the params after 2 make_train_step
+                  steps; limits in TRAIN_PARITY_TOL.
+7. train        — the training path at full width: the 8-layer 110M bf16
+                  LM at B 8 x 1025 tokens (T 1024 reaches the model) on a
+                  cyclic, learnable token sequence: TRAIN_STEPS
+                  make_train_step steps, then fit_scan over the batches.
+                  Every loss finite, the last step's loss and fit_scan's
+                  below half the first step's, and K1, K2 and K3 each
+                  launched exactly n_layers times a step (counted).
+                  Tokens/s and step ms by CUDA events.
 
-Then, at the main path's shapes: each kernel's time beside its plain
-version's, the library call's (SDPA for K1) and its bound. The last lines
-are the card as nvidia-smi gives it, the kernels' JSON line, and
-{"ok": true, "device": {...}}.
+Then, at each path's shapes: each kernel's time beside its plain
+version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3)
+and its bound, one whole prefill, decode step and training step, each
+profiled. The last lines are the card as nvidia-smi gives it, the
+kernels' JSON line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -54,7 +76,8 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch import _build
 from deeplearning4j_tpu_torch.attention import blockwise, flash, paged
 from deeplearning4j_tpu_torch.models.transformer import (
-    TransformerConfig, init_transformer_params)
+    TransformerConfig, fit_scan, init_transformer_params, init_velocity,
+    lm_loss_and_grads, make_train_step)
 from deeplearning4j_tpu_torch.serving import paged_kv
 from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
 from deeplearning4j_tpu_torch.weights import params_to_device
@@ -63,11 +86,25 @@ from deeplearning4j_tpu_torch.weights import params_to_device
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: K2/K3 against their plain version, relative to the largest |plain|
+#: value: float32 sums in another order; bfloat16 P and dS round at the
+#: same points, but a value near a rounding edge may round the other way
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 #: the 110M LM (d_model 1024, 8 layers, hd 128, vocab 8192, bf16)
 FULL = TransformerConfig(vocab_size=8192, d_model=1024, n_heads=8,
                          n_layers=8, d_ff=4096, max_len=1024,
                          dtype=torch.bfloat16)
 SLOTS, PAGE_SIZE, N_REQUESTS, MAX_TOKENS = 8, 16, 16, 64
+#: the training path: B x (T + 1) tokens a batch, steps, batches, lr
+#: (at lr 0.01 and above, SGD with momentum 0.9 overshoots on this data
+#: after 3 steps and the loss climbs again)
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_BATCHES, TRAIN_LR = 8, 1024, 10, 4, 5e-3
+#: card vs CPU, float32, 2 layers: the loss (absolute; it is ~9), each
+#: gradient leaf (relative to its largest |CPU| value; sums in another
+#: order, the tied embedding's a scatter-add with atomics), the params
+#: after 2 steps (absolute; parameters are ~0.02)
+TRAIN_PARITY_TOL = {"loss": 2e-5, "grad": 1e-4, "embed_grad": 1e-4,
+                    "params": 2e-6}
 
 
 def emit(obj) -> None:
@@ -118,18 +155,33 @@ def max_err(a, b) -> float:
 
 
 # ----------------------------------------------------------------- bounds
+def visible_pairs(tq, tk, causal):
+    """(query, key) pairs one batch*head row attends over."""
+    if not causal:
+        return tq * tk
+    off = tk - tq
+    return sum(max(0, min(tk, i + off + 1)) for i in range(tq))
+
+
 def flash_work(bh, tq, tk, hd, causal, dtype):
     """(bytes, operations) the flash forward must move and do: q, k, v
     read once and out written once; 4*hd operations per visible
     (query, key) pair (two products of 2*hd)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = bh * (2 * tq + 2 * tk) * hd * itemsize
-    if causal:
-        off = tk - tq
-        pairs = sum(max(0, min(tk, i + off + 1)) for i in range(tq))
-    else:
-        pairs = tq * tk
-    return nbytes, 4 * hd * bh * pairs
+    return nbytes, 4 * hd * bh * visible_pairs(tq, tk, causal)
+
+
+def flash_bwd_work(kernel, bh, tq, tk, hd, causal, dtype):
+    """(bytes, operations) of one backward kernel. Both read q, dO (Tq
+    rows), k, v (Tk rows) and the float32 lse and D once. K2 ("dq")
+    writes dQ and does 6*hd operations per visible pair (S, dP, dS.K);
+    K3 ("dkv") writes dK and dV and does 8*hd (S, dP, P^T.dO, dS^T.Q)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    rows = {"dq": 3 * tq + 2 * tk, "dkv": 2 * tq + 4 * tk}[kernel]
+    nbytes = bh * rows * hd * itemsize + bh * tq * 2 * 4
+    per_pair = {"dq": 6, "dkv": 8}[kernel] * hd
+    return nbytes, per_pair * bh * visible_pairs(tq, tk, causal)
 
 
 def paged_work(lengths, heads, hd, ps, width, dtype):
@@ -241,6 +293,84 @@ def phase_kernels(device, timer, seed):
             worst["paged_decode"] = max(worst["paged_decode"], err)
             if err > TOL[dtype]:
                 raise AssertionError(f"paged kernel disagrees: {cases[-1]}")
+    bwd, bwd_worst = bwd_cases(device, timer, gen)
+    return cases + bwd, {**worst, **bwd_worst}
+
+
+def rel_errs(got, ref):
+    """max |got - ref| and that over max |ref|, per tensor."""
+    out = []
+    for a, b in zip(got, ref):
+        err = max_err(a, b)
+        out.append((err, err / max(float(b.float().abs().max()), 1e-30)))
+    return out
+
+
+def bwd_cases(device, timer, gen):
+    """K2 and K3 (through `_flash_backward`, with an lse cotangent)
+    against `flash_attention_bwd_ref` on the card; float32 also against
+    autograd of blockwise_attention."""
+    cases = []
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+             "flash_bwd_dq_rel": 0.0, "flash_bwd_dkv_rel": 0.0}
+    shapes = ([(t, t) for t in (16, 100, 128, 1024)]
+              + [(64, 1024), (200, 37)])
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (64, 128):
+            for tq, tk in shapes:
+                q, do = (torch.randn(64, tq, hd, generator=gen)
+                         .to(device, dtype) for _ in range(2))
+                k, v = (torch.randn(64, tk, hd, generator=gen)
+                        .to(device, dtype) for _ in range(2))
+                g_lse = torch.randn(64, tq, generator=gen).to(device)
+                for causal in (False, True):
+                    out, lse = flash.flash_attention_with_lse(q, k, v,
+                                                              causal)
+                    args = (q, k, v, out, lse, do, causal, g_lse)
+                    got = flash._flash_backward(*args)
+                    ref = flash.flash_attention_bwd_ref(*args)
+                    errs = rel_errs(got, ref)
+                    ok = max(r for _, r in errs) <= BWD_TOL[dtype]
+                    # rows that see no key (causal Tq > Tk): exactly zero
+                    no_key = max(tq - tk, 0) if causal else 0
+                    no_key_zero = bool((got[0][:, :no_key] == 0).all())
+                    ok = ok and no_key_zero
+                    bw_rel = None
+                    if dtype == torch.float32:
+                        leaves = [x.detach().requires_grad_()
+                                  for x in (q, k, v)]
+                        bw = torch.autograd.grad(
+                            blockwise.blockwise_attention(
+                                *leaves, causal, block_size=64,
+                                return_lse=True), leaves, (do, g_lse))
+                        bw_rel = max(r for _, r in rel_errs(got, bw))
+                        ok = ok and bw_rel <= BWD_TOL[dtype]
+                    torch.cuda.synchronize()
+                    cases.append({
+                        "kernel": "flash_bwd", "dtype": str(dtype),
+                        "bh": 64, "tq": tq, "tk": tk, "hd": hd,
+                        "causal": causal,
+                        "max_abs_err": {n: e for n, (e, _) in
+                                        zip(("dq", "dk", "dv"), errs)},
+                        "max_rel_err": {n: r for n, (_, r) in
+                                        zip(("dq", "dk", "dv"), errs)},
+                        "blockwise_max_rel_err": bw_rel,
+                        "no_key_rows": no_key,
+                        "no_key_rows_dq_zero": no_key_zero, "ok": ok,
+                        "kernel_ms": timer.ms(
+                            lambda: flash._flash_backward(*args), iters=3),
+                        "ref_ms": timer.ms(
+                            lambda: flash.flash_attention_bwd_ref(*args),
+                            iters=2)})
+                    for name, idx in (("flash_bwd_dq", (0,)),
+                                      ("flash_bwd_dkv", (1, 2))):
+                        worst[name] = max(worst[name],
+                                          *(errs[i][0] for i in idx))
+                        worst[name + "_rel"] = max(
+                            worst[name + "_rel"], *(errs[i][1] for i in idx))
+                    if not ok:
+                        raise AssertionError(f"flash backward kernels "
+                                             f"disagree: {cases[-1]}")
     return cases, worst
 
 
@@ -351,6 +481,218 @@ def phase_serve(device, seed):
                 snap["peak_pages_in_use"], "ok": ok}, params, plens
 
 
+def flash_counts() -> dict:
+    return {"flash_fwd": flash.launches, "flash_bwd_dq": flash.dq_launches,
+            "flash_bwd_dkv": flash.dkv_launches}
+
+
+def reset_flash_counts() -> None:
+    flash.launches = flash.dq_launches = flash.dkv_launches = 0
+
+
+def leaf_items(tree, prefix=""):
+    """(path, tensor) for every leaf of a params-shaped tree."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in leaf_items(v, f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree)
+                for kv in leaf_items(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def cyclic_tokens(seed, n_batches, b, t, period=5):
+    """tokens[i] = (offset + i) % period, a random offset per row: a
+    learnable sequence (the JAX package's tests/test_transformer.py
+    builds its training data the same way)."""
+    off = np.random.RandomState(seed).randint(0, period, (n_batches, b, 1))
+    return torch.from_numpy(((off + np.arange(t)[None, None, :]) % period)
+                            .astype(np.int32))
+
+
+def phase_train_parity(device, seed):
+    """Full width cut to 2 layers, float32: the loss, every gradient leaf
+    and the params after 2 train steps on the card (kernels) against the
+    same weights on the CPU (plain versions), at a ragged T."""
+    cfg = FULL._replace(n_layers=2, dtype=torch.float32)
+    params = init_transformer_params(seed, cfg, device=device)
+    cpu_params = params_to_device(params, "cpu")
+    rng = np.random.default_rng(seed + 2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2, 301))
+                            .astype(np.int32))
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    loss, grads = lm_loss_and_grads(params, toks[0].to(device), cfg)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    cpu_loss, cpu_grads = lm_loss_and_grads(cpu_params, toks[0], cfg)
+    grad_rel = {}
+    for (name, g), (_, cg) in zip(leaf_items(grads), leaf_items(cpu_grads)):
+        grad_rel[name] = max_err(g.cpu(), cg) / max(
+            float(cg.abs().max()), 1e-30)
+    embed_rel = grad_rel.pop("/embed")
+    zero_leaves = [n for n, g in leaf_items(grads)
+                   if float(g.abs().max()) == 0.0]
+    step, cpu_step = make_train_step(cfg), make_train_step(cfg)
+    vel, cpu_vel = init_velocity(params), init_velocity(cpu_params)
+    for tok in toks[1:]:
+        params, vel, _ = step(params, vel, tok.to(device))
+        cpu_params, cpu_vel, _ = cpu_step(cpu_params, cpu_vel, tok)
+    param_diff = max(max_err(a.cpu(), b) for (_, a), (_, b) in
+                     zip(leaf_items(params), leaf_items(cpu_params)))
+    loss_diff = abs(float(loss) - float(cpu_loss))
+    worst_leaf = max(grad_rel, key=grad_rel.get)
+    tol = TRAIN_PARITY_TOL
+    ok = (loss_diff <= tol["loss"] and grad_rel[worst_leaf] <= tol["grad"]
+          and embed_rel <= tol["embed_grad"]
+          and param_diff <= tol["params"] and not zero_leaves
+          and launches == {k: cfg.n_layers for k in launches})
+    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "dtype": "float32",
+            "tokens": list(toks.shape[1:]), "loss": float(loss),
+            "loss_abs_diff": loss_diff,
+            "grad_max_rel_diff": grad_rel[worst_leaf],
+            "grad_worst_leaf": worst_leaf,
+            "embed_grad_rel_diff": embed_rel,
+            "params_after_2_steps_max_abs_diff": param_diff,
+            "leaves_with_zero_grad": zero_leaves,
+            "launches_one_loss_and_grad": launches,
+            "tolerances": tol, "ok": ok}
+
+
+def phase_train(device, seed):
+    """The training path at full width: TRAIN_STEPS make_train_step
+    steps, then fit_scan over the batches."""
+    params = init_transformer_params(seed, FULL, device=device)
+    batches = cyclic_tokens(seed, TRAIN_BATCHES, TRAIN_B,
+                            TRAIN_T + 1).to(device)
+    step = make_train_step(FULL, lr=TRAIN_LR)
+    velocity = init_velocity(params)
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    losses, events = [], []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, velocity, loss = step(params, velocity,
+                                      batches[i % TRAIN_BATCHES])
+        end.record()
+        losses.append(loss)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_launches = flash_counts()
+    losses = torch.stack(losses).tolist()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    t0 = time.perf_counter()
+    params, last = fit_scan(params, batches, FULL, lr=TRAIN_LR)
+    last = float(last)
+    fit_s = time.perf_counter() - t0
+    launches = flash_counts()
+    per_step = FULL.n_layers
+    ok = (all(np.isfinite(losses)) and np.isfinite(last)
+          and max(losses[-1], last) < 0.5 * losses[0]
+          and step_launches == {k: per_step * TRAIN_STEPS
+                                for k in step_launches}
+          and launches == {k: per_step * (TRAIN_STEPS + TRAIN_BATCHES)
+                           for k in launches})
+    tokens_per_step = TRAIN_B * TRAIN_T
+    steady = sorted(step_ms[1:])
+    return {"params": count_params(params), "layers": FULL.n_layers,
+            "d_model": FULL.d_model, "heads": FULL.n_heads,
+            "vocab": FULL.vocab_size, "dtype": "bfloat16",
+            "batch": TRAIN_B, "tokens_per_row": TRAIN_T + 1,
+            "lr": TRAIN_LR, "steps": TRAIN_STEPS, "losses": losses,
+            "fit_scan_batches": TRAIN_BATCHES, "fit_scan_last_loss": last,
+            "fit_scan_s": fit_s, "step_ms": step_ms,
+            "step_ms_p50": steady[len(steady) // 2],
+            "tokens_per_s": tokens_per_step * TRAIN_STEPS / wall,
+            "tokens_per_s_p50_step": tokens_per_step / (
+                steady[len(steady) // 2] / 1e3),
+            "launches_steps": step_launches, "launches": launches,
+            "ok": ok}, params, batches
+
+
+def train_timing(device, timer, params, batches, seed, worst, launches):
+    """K1 (with its lse), K2 and K3 at the training path's attention shape
+    beside their plain version, the library call and their bound; one
+    whole training step, timed and profiled."""
+    gen = torch.Generator().manual_seed(seed + 3)
+    dt = FULL.dtype
+    hd = FULL.d_model // FULL.n_heads
+    bh, t = TRAIN_B * FULL.n_heads, TRAIN_T
+    q, k, v, do = (torch.randn(TRAIN_B, FULL.n_heads, t, hd, generator=gen)
+                   .to(device, dt) for _ in range(4))
+    q3, k3, v3, do3 = (x.reshape(bh, t, hd) for x in (q, k, v, do))
+    out, lse = flash.flash_attention_with_lse(q3, k3, v3, True)
+    dd = flash._delta(out, do3).contiguous()
+    args = (q3, k3, v3, out, lse, do3, True)
+    errs = rel_errs(flash._flash_backward(*args),
+                    flash.flash_attention_bwd_ref(*args))
+    if max(r for _, r in errs) > BWD_TOL[dt]:
+        raise AssertionError(f"flash backward disagrees at the training "
+                             f"shape: {errs}")
+    plain_ms = timer.ms(lambda: flash.flash_attention_bwd_ref(*args),
+                        iters=5)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    library_ms = timer.ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, do, retain_graph=True))
+    shape = {"bh": bh, "t": t, "hd": hd, "dtype": "bfloat16",
+             "causal": True}
+    rows = []
+    for name, fn, idx in (
+            ("dq", lambda: flash._launch_dq(q3, k3, v3, do3, lse, dd, True),
+             (0,)),
+            ("dkv", lambda: flash._launch_dkv(q3, k3, v3, do3, lse, dd, True),
+             (1, 2))):
+        key = f"flash_bwd_{name}"
+        nbytes, ops = flash_bwd_work(name, bh, t, t, hd, True, dt)
+        bound, by = bound_ms(nbytes, ops, dt)
+        rows.append({
+            "name": key, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": {"dq": "deeplearning4j_tpu/attention/"
+                               "flash_pallas.py:312",
+                         "dkv": "deeplearning4j_tpu/attention/"
+                                "flash_pallas.py:375"}[name],
+            "launches": launches[key],
+            "max_abs_err": max(worst[key], *(errs[i][0] for i in idx)),
+            "max_rel_err": max(worst[key + "_rel"],
+                               *(errs[i][1] for i in idx)),
+            "ms": timer.ms(fn), "plain_ms": plain_ms,
+            "plain_covers": "dQ, dK and dV together",
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "library_covers": "SDPA backward: dQ, dK and dV together",
+            "shape": shape})
+    nbytes, ops = flash_work(bh, t, t, hd, True, dt)
+    k1_bound, k1_by = bound_ms(nbytes, ops, dt)
+    k1_train = {"ms": timer.ms(lambda: flash.flash_attention_with_lse(
+                    q3, k3, v3, True)),
+                "bound_ms": k1_bound, "bound_by": k1_by,
+                "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)), "shape": shape,
+                "with_lse": True}
+    step = make_train_step(FULL, lr=TRAIN_LR)
+    velocity = init_velocity(params)
+
+    def one_step():
+        return step(params, velocity, batches[0])
+
+    groups = {"flash_fwd": "flash_fwd_kernel",
+              "flash_bwd_dq": "flash_bwd_dq_kernel",
+              "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+              "cublas_gemm": "nvjet", "elementwise": "elementwise_kernel",
+              "reduce": "reduce_kernel"}
+    return rows, {
+        "train_shape_flash_fwd": k1_train,
+        "train_step_ms": timer.ms(one_step, iters=3),
+        "train_step_profile": device_profile(one_step, iters=2,
+                                             groups=groups)}
+
+
 def main_path_timing(device, timer, params, plens, serve, seed, worst,
                      launches):
     """Each kernel at the shapes the serve phase gave it, beside its plain
@@ -436,11 +778,12 @@ def main_path_timing(device, timer, params, plens, serve, seed, worst,
             params, toks, tl, pool, pids, FULL), iters=2)}
 
 
-def device_profile(fn, iters: int) -> dict:
+def device_profile(fn, iters: int, groups=None) -> dict:
     """Device time by kernel over `iters` calls (torch.profiler, CUDA
     activity only counted from kernel events), and the device's busy
-    share of the profiled wall time. "not measured" when the profiler
-    reports no device time."""
+    share of the profiled wall time; `groups` ({label: substring of the
+    kernel name}) adds each group's share and calls. "not measured" when
+    the profiler reports no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -461,7 +804,14 @@ def device_profile(fn, iters: int) -> dict:
         return {"device_time": "not measured"}
     total_us = sum(us for _, us, _ in rows)
     rows.sort(key=lambda r: -r[1])
-    return {"iters": iters,
+    shares = {label: {"ms_per_call": sum(us for k, us, _ in rows if sub in k)
+                      / 1e3 / iters,
+                      "share": sum(us for k, us, _ in rows if sub in k)
+                      / total_us,
+                      "calls_per_call": sum(c for k, _, c in rows if sub in k)
+                      / iters}
+              for label, sub in (groups or {}).items()}
+    return {"iters": iters, "groups": shares,
             "wall_ms_per_call": wall * 1e3 / iters,
             "device_ms_per_call": total_us / 1e3 / iters,
             "device_busy_share": total_us / 1e6 / wall,
@@ -502,7 +852,8 @@ def main(argv=None) -> int:
              "library": str(_build.build().relative_to(
                  _build.PACKAGE_DIR.parent)),
              "ptxas": [ln.strip() for ln in build_log.read_text()
-                       .splitlines() if "Used" in ln or "==" in ln]
+                       .splitlines()
+                       if "Used" in ln or "==" in ln or "spill" in ln]
              if build_log.exists() else []}
     emit(build)
     record["build"] = build
@@ -526,6 +877,28 @@ def main(argv=None) -> int:
 
     kernels, steps = main_path_timing(device, timer, params, plens, serve,
                                       args.seed, worst, serve["launches"])
+    del params
+
+    train_parity = phase_train_parity(device, args.seed)
+    emit({"phase": "train_parity", **train_parity})
+    record["train_parity"] = train_parity
+    if not train_parity["ok"]:
+        raise AssertionError(f"train parity failed: {train_parity}")
+
+    train, params, batches = phase_train(device, args.seed)
+    emit({"phase": "train", **train})
+    record["train"] = train
+    if not train["ok"]:
+        raise AssertionError(f"train failed: {train}")
+
+    bwd_rows, steps["train"] = train_timing(device, timer, params, batches,
+                                            args.seed, worst,
+                                            train["launches"])
+    k1, k4 = kernels
+    k1["launches_by_path"] = {"serve": k1["launches"],
+                              "train": train["launches"]["flash_fwd"]}
+    k1["launches"] = sum(k1["launches_by_path"].values())
+    kernels = [k1, *bwd_rows, k4]
     emit({"phase": "main_path_steps", **steps})
     record["main_path_steps"] = steps
     record["kernels_summary"] = kernels

@@ -46,6 +46,12 @@ SIGNATURES = {
     # q, k, v, out, lse|NULL, bh, tq, tk, hd, dtype, causal, stream
     "dl4j_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                        _I),
+    # q, k, v, dout, lse, dd, dq, bh, tq, tk, hd, dtype, causal, stream
+    "dl4j_flash_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _P], _I),
+    # q, k, v, dout, lse, dd, dk, dv, bh, tq, tk, hd, dtype, causal, stream
+    "dl4j_flash_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _P], _I),
     # q, k_pool, v_pool, page_table, lengths, out,
     # slots, heads, page_size, table_width, hd, dtype, stream
     "dl4j_paged_decode": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,6 +1,8 @@
 """Causal transformer language model in PyTorch — the counterpart of the
-JAX package's `models/transformer.py` (forward and generation; training
-waits for the flash backward kernels).
+JAX package's `models/transformer.py`: forward, greedy generation, and
+training (`lm_loss`, `make_train_step`, `init_velocity`, `fit_scan`, SGD
+with momentum) whose attention gradients run through the flash backward
+kernels (K2, K3) by way of `attention/flash.py`'s autograd Function.
 
 Parameters are a plain dict with the JAX pytree's keys — `embed`, `pos`,
 `ln_f`, and `blocks[i]` holding `ln1`, `Wq`, `Wk`, `Wv`, `Wo`, `ln2`,
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import default_device
 from deeplearning4j_tpu_torch.attention.flash import flash_attention
+from deeplearning4j_tpu_torch.weights import tree_map
 
 
 class TransformerConfig(NamedTuple):
@@ -112,6 +115,89 @@ def transformer_logits(params, tokens, cfg: TransformerConfig):
     return x @ params["embed"].T
 
 
+def lm_loss(params, tokens, cfg: TransformerConfig):
+    """Next-token cross entropy, mean over the (B, T-1) positions of
+    tokens[:, :-1] -> tokens[:, 1:]; logits upcast to float32 before the
+    log-softmax. A 0-d float32 tensor on the params' device."""
+    tokens = tokens.to(params["embed"].device)
+    logits = transformer_logits(params, tokens[:, :-1], cfg)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    targets = tokens[:, 1:].long()
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+
+def _leaves(tree):
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def lm_loss_and_grads(params, tokens, cfg: TransformerConfig):
+    """(lm_loss, its gradient as a tree shaped like params): the port's
+    `jax.value_and_grad(lm_loss)`. The gradient is taken at detached
+    aliases of the leaves, so params never require grad and no graph
+    outlives the call."""
+    leaves = [p.detach().requires_grad_() for p in _leaves(params)]
+    it = iter(leaves)
+    tracked = tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        loss = lm_loss(tracked, tokens, cfg)
+        grads = iter(torch.autograd.grad(loss, leaves))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+@torch.no_grad()
+def _sgd_momentum_update(params, velocity, grads, lr, momentum=0.9):
+    """The one update rule both training entry points share, in place:
+    v = momentum * v + g in float32, then p = p - lr * v.to(p.dtype).
+    The cast comes before the product, and lr is rounded to p's dtype,
+    so a bfloat16 parameter rounds where JAX's does."""
+    for p, v, g in zip(_leaves(params), _leaves(velocity), _leaves(grads)):
+        v.mul_(momentum).add_(g)
+        lr_p = torch.tensor(lr, dtype=p.dtype).item()
+        p.sub_(v.to(p.dtype) * lr_p)
+
+
+def init_velocity(params):
+    """Float32 zeros shaped like every leaf of params."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
+
+
+def make_train_step(cfg: TransformerConfig, lr: float = 1e-2):
+    """step(params, velocity, tokens) -> (params, velocity, loss): one
+    SGD + momentum step on the LM loss. The forward launches K1 with its
+    lse and the backward K2 and K3 in every block. params and velocity
+    are updated in place (the port's form of JAX's donation) and handed
+    back; the loss stays a 0-d device tensor, so a step makes no host
+    sync."""
+
+    def step(params, velocity, tokens):
+        loss, grads = lm_loss_and_grads(params, tokens, cfg)
+        _sgd_momentum_update(params, velocity, grads, lr)
+        return params, velocity, loss
+
+    return step
+
+
+def fit_scan(params, tokens_batches, cfg: TransformerConfig,
+             lr: float = 1e-2, epochs: int = 1):
+    """Whole-epoch training: `epochs` passes over tokens_batches
+    (n_batches, B, T), one train step a batch, from a zero velocity.
+    Updates params in place and returns (params, last loss), the loss a
+    0-d device tensor; nothing reads a value back between steps."""
+    batches = torch.as_tensor(tokens_batches).to(params["embed"].device)
+    if int(epochs) < 1 or batches.shape[0] < 1:
+        raise ValueError(f"fit_scan needs epochs >= 1 and at least one "
+                         f"batch, got {epochs} and {batches.shape[0]}")
+    step = make_train_step(cfg, lr)
+    velocity = init_velocity(params)
+    for _ in range(int(epochs)):
+        for batch in batches:
+            params, velocity, loss = step(params, velocity, batch)
+    return params, loss
+
+
 @torch.no_grad()
 def generate(params, prompt, cfg: TransformerConfig, n_tokens: int,
              cache: bool = False):
@@ -141,4 +227,5 @@ def generate(params, prompt, cfg: TransformerConfig, n_tokens: int,
 
 
 __all__ = ["TransformerConfig", "init_transformer_params",
-           "transformer_logits", "generate"]
+           "transformer_logits", "lm_loss", "lm_loss_and_grads",
+           "make_train_step", "init_velocity", "fit_scan", "generate"]

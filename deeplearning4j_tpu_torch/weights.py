@@ -17,14 +17,17 @@ import torch
 
 from deeplearning4j_tpu_torch import default_device
 
-__all__ = ["params_from_jax", "params_to_numpy", "params_to_device"]
+__all__ = ["params_from_jax", "params_to_numpy", "params_to_device",
+           "tree_map"]
 
 
-def _map(fn, tree):
+def tree_map(fn, tree):
+    """The same nesting of dicts and lists with `fn` applied to every leaf,
+    leaves visited in a fixed order (dict insertion order, list order)."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -47,7 +50,7 @@ def params_from_jax(tree, device=None, dtype=None):
             t = t.to(dtype)
         return t.to(device)
 
-    return _map(conv, tree)
+    return tree_map(conv, tree)
 
 
 def params_to_numpy(params):
@@ -59,10 +62,10 @@ def params_to_numpy(params):
             t = t.float()
         return t.numpy()
 
-    return _map(conv, params)
+    return tree_map(conv, params)
 
 
 def params_to_device(params, device):
     """The same tree with every tensor on `device` (no copy where a leaf
     is already there)."""
-    return _map(lambda t: t.to(device), params)
+    return tree_map(lambda t: t.to(device), params)
