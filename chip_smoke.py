@@ -10,10 +10,16 @@ prints no result):
 1. env          — the card (nvidia-smi name and power limit), torch and
                   CUDA versions; the card must be compute capability 9.0
                   (Hopper).
-2. build        — build the kernels from deeplearning4j_tpu_torch/csrc/.
+2. build        — build the kernels from deeplearning4j_tpu_torch/csrc/;
+                  per kernel function, ptxas's registers and spill bytes
+                  and, from `cuobjdump -sass` of the library, its HGMMA
+                  (wgmma) and HMMA (mma.sync) instructions. Fails if a
+                  bf16 K1 or K3 instantiation holds neither or spills.
 3. kernels      — every ported kernel against its plain PyTorch version on
                   the card: the flash forward (K1) at B*H = 64, T in
-                  {16, 100, 128, 1024} and Tq < Tk, hd 64 and 128, causal
+                  {1, 16, 63, 65, 100, 128, 129, 1000, 1024}, Tq 64 < Tk
+                  1024 and Tq 200 > Tk 37 (the edges of the bf16 kernels'
+                  64-key tiles and 128-row blocks), hd 64 and 128, causal
                   or not; the paged decode (K4) at 8 slots, page_size 16,
                   64 pages per slot, ragged cursors (0, ps-1, ps, the
                   window edge, past it) and an idle all-trash slot.
@@ -22,8 +28,8 @@ prints no result):
                   cases are also held against blockwise_attention, the
                   online-softmax plain form. Then the flash backward, dQ
                   (K2) and dK/dV (K3), with an lse cotangent, at the same
-                  B*H, hd, causal settings and shapes plus Tq > Tk (rows
-                  that see no key): within 1e-4 (float32) and 3e-2
+                  B*H, hd, causal settings and shapes: within 1e-4
+                  (float32) and 3e-2
                   (bfloat16) of the largest |plain| value, and in float32
                   also against torch.autograd.grad of blockwise_attention.
 4. parity       — the model at full width (d_model 1024, 8 heads, d_ff
@@ -53,10 +59,11 @@ prints no result):
                   Tokens/s and step ms by CUDA events.
 
 Then, at each path's shapes: each kernel's time beside its plain
-version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3)
-and its bound, one whole prefill, decode step and training step, each
-profiled. The last lines are the card as nvidia-smi gives it, the
-kernels' JSON line, and {"ok": true, "device": {...}}.
+version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3;
+the median of 3 separate batches, all three recorded) and its bound, one
+whole prefill, decode step and training step, each profiled. The last
+lines are the card as nvidia-smi gives it, the kernels' JSON line (with
+each kernel's design), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -64,10 +71,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -95,6 +104,17 @@ FULL = TransformerConfig(vocab_size=8192, d_model=1024, n_heads=8,
                          n_layers=8, d_ff=4096, max_len=1024,
                          dtype=torch.bfloat16)
 SLOTS, PAGE_SIZE, N_REQUESTS, MAX_TOKENS = 8, 16, 16, 64
+#: (Tq, Tk) of the flash kernels' cases: the path's buckets, the edges of
+#: the bf16 kernels' tiling (64-key tiles, 64-row warpgroups, 128-row
+#: forward blocks), Tq < Tk, and Tq > Tk (causal rows that see no key)
+FLASH_SHAPES = ([(t, t) for t in (1, 16, 63, 65, 100, 128, 129, 1000, 1024)]
+                + [(64, 1024), (200, 37)])
+#: how each kernel computes on the main path (bf16); every float32
+#: instantiation is a scalar f32 kernel (`build.functions` shows no HGMMA)
+DESIGN = {"flash_fwd": "wgmma+cp.async", "flash_bwd_dq": "scalar f32",
+          "flash_bwd_dkv": "wgmma+cp.async", "paged_decode": "scalar f32"}
+#: the bf16 kernels that must run on the tensor cores
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel_wgmma", "flash_bwd_dkv_kernel_wgmma")
 #: the training path: B x (T + 1) tokens a batch, steps, batches, lr
 #: (at lr 0.01 and above, SGD with momentum 0.9 overshoots on this data
 #: after 3 steps and the loss climbs again)
@@ -140,6 +160,13 @@ class Timer:
             torch.cuda.synchronize()
             total += start.elapsed_time(end)
         return total / iters
+
+
+def library_ms(timer, fn, batches: int = 3):
+    """(median, every batch) of `batches` separate `Timer.ms` batches: a
+    library call's time moves by up to 2x from one batch to the next."""
+    runs = [timer.ms(fn) for _ in range(batches)]
+    return sorted(runs)[len(runs) // 2], runs
 
 
 def count_params(tree) -> int:
@@ -232,10 +259,9 @@ def paged_inputs(gen, device, dtype, heads, hd, lengths, n_pages=512,
 def phase_kernels(device, timer, seed):
     gen = torch.Generator().manual_seed(seed)
     cases, worst = [], {"flash_fwd": 0.0, "paged_decode": 0.0}
-    shapes = [(t, t) for t in (16, 100, 128, 1024)] + [(64, 1024)]
     for dtype in (torch.float32, torch.bfloat16):
         for hd in (64, 128):
-            for tq, tk in shapes:
+            for tq, tk in FLASH_SHAPES:
                 q = torch.randn(64, tq, hd, generator=gen).to(device, dtype)
                 k = torch.randn(64, tk, hd, generator=gen).to(device, dtype)
                 v = torch.randn(64, tk, hd, generator=gen).to(device, dtype)
@@ -247,7 +273,12 @@ def phase_kernels(device, timer, seed):
                     torch.cuda.synchronize()
                     err = max_err(out, ref)
                     lse_err = max_err(lse, ref_lse)
-                    ok = err <= TOL[dtype] and lse_err <= 1e-3
+                    # causal rows that see no key: out 0 and lse +1e30
+                    no_key = max(tq - tk, 0) if causal else 0
+                    no_key_ok = bool((out[:, :no_key] == 0).all() and (
+                        lse[:, :no_key] == -flash.NEG_INF).all())
+                    ok = (err <= TOL[dtype] and lse_err <= 1e-3
+                          and no_key_ok)
                     bw_err = None
                     if dtype == torch.float32:
                         # the online-softmax plain form, natural base
@@ -261,7 +292,9 @@ def phase_kernels(device, timer, seed):
                         "bh": 64, "tq": tq, "tk": tk, "hd": hd,
                         "causal": causal, "max_abs_err": err,
                         "lse_max_abs_err": lse_err,
-                        "blockwise_max_abs_err": bw_err, "ok": ok,
+                        "blockwise_max_abs_err": bw_err,
+                        "no_key_rows": no_key,
+                        "no_key_rows_exact": no_key_ok, "ok": ok,
                         "kernel_ms": timer.ms(
                             lambda: flash.flash_attention(q, k, v, causal),
                             iters=5),
@@ -313,11 +346,9 @@ def bwd_cases(device, timer, gen):
     cases = []
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
              "flash_bwd_dq_rel": 0.0, "flash_bwd_dkv_rel": 0.0}
-    shapes = ([(t, t) for t in (16, 100, 128, 1024)]
-              + [(64, 1024), (200, 37)])
     for dtype in (torch.float32, torch.bfloat16):
         for hd in (64, 128):
-            for tq, tk in shapes:
+            for tq, tk in FLASH_SHAPES:
                 q, do = (torch.randn(64, tq, hd, generator=gen)
                          .to(device, dtype) for _ in range(2))
                 k, v = (torch.randn(64, tk, hd, generator=gen)
@@ -638,7 +669,7 @@ def train_timing(device, timer, params, batches, seed, worst, launches):
                         iters=5)
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    library_ms = timer.ms(lambda: torch.autograd.grad(
+    lib_ms, lib_runs = library_ms(timer, lambda: torch.autograd.grad(
         sdpa_out, leaves, do, retain_graph=True))
     shape = {"bh": bh, "t": t, "hd": hd, "dtype": "bfloat16",
              "causal": True}
@@ -652,7 +683,7 @@ def train_timing(device, timer, params, batches, seed, worst, launches):
         nbytes, ops = flash_bwd_work(name, bh, t, t, hd, True, dt)
         bound, by = bound_ms(nbytes, ops, dt)
         rows.append({
-            "name": key, "route": "cuda",
+            "name": key, "route": "cuda", "design": DESIGN[key],
             "source": "deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
             "replaces": {"dq": "deeplearning4j_tpu/attention/"
                                "flash_pallas.py:312",
@@ -664,17 +695,20 @@ def train_timing(device, timer, params, batches, seed, worst, launches):
                                *(errs[i][1] for i in idx)),
             "ms": timer.ms(fn), "plain_ms": plain_ms,
             "plain_covers": "dQ, dK and dV together",
-            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "library_ms_batches": lib_runs,
             "library_covers": "SDPA backward: dQ, dK and dV together",
             "shape": shape})
     nbytes, ops = flash_work(bh, t, t, hd, True, dt)
     k1_bound, k1_by = bound_ms(nbytes, ops, dt)
+    k1_lib, k1_lib_runs = library_ms(
+        timer, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True))
     k1_train = {"ms": timer.ms(lambda: flash.flash_attention_with_lse(
                     q3, k3, v3, True)),
                 "bound_ms": k1_bound, "bound_by": k1_by,
-                "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True)), "shape": shape,
-                "with_lse": True}
+                "library_ms": k1_lib, "library_ms_batches": k1_lib_runs,
+                "shape": shape, "with_lse": True}
     step = make_train_step(FULL, lr=TRAIN_LR)
     velocity = init_velocity(params)
 
@@ -711,7 +745,11 @@ def main_path_timing(device, timer, params, plens, serve, seed, worst,
                     flash.flash_attention_ref(q3, k3, v3, True))
     nbytes, ops = flash_work(bh, tb, tb, hd, True, dt)
     f_bound, f_by = bound_ms(nbytes, ops, dt)
+    f_lib, f_lib_runs = library_ms(
+        timer, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True))
     k1 = {"name": "flash_fwd", "route": "cuda",
+          "design": DESIGN["flash_fwd"],
           "source": "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
           "replaces": "deeplearning4j_tpu/attention/flash_pallas.py:92",
           "launches": launches["flash_fwd"],
@@ -720,8 +758,7 @@ def main_path_timing(device, timer, params, plens, serve, seed, worst,
           "plain_ms": timer.ms(lambda: flash.flash_attention_ref(
               q3, k3, v3, True), iters=5),
           "bound_ms": f_bound, "bound_by": f_by,
-          "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-              q, k, v, is_causal=True)),
+          "library_ms": f_lib, "library_ms_batches": f_lib_runs,
           "shape": {"bh": bh, "t": tb, "hd": hd, "dtype": "bfloat16",
                     "causal": True}}
     # K4: the decode step with 8 slots mid-generation (cursor = prompt +
@@ -737,6 +774,7 @@ def main_path_timing(device, timer, params, plens, serve, seed, worst,
     nbytes, ops = paged_work(lengths, FULL.n_heads, hd, PAGE_SIZE, width, dt)
     p_bound, p_by = bound_ms(nbytes, ops, dt)
     k4 = {"name": "paged_decode", "route": "cuda",
+          "design": DESIGN["paged_decode"],
           "source": "deeplearning4j_tpu_torch/csrc/paged_decode.cu",
           "replaces": "deeplearning4j_tpu/attention/paged_pallas.py:51",
           "launches": launches["paged_decode"],
@@ -773,9 +811,13 @@ def main_path_timing(device, timer, params, plens, serve, seed, worst,
     return [k1, k4], {
         "prefill_group": [bb, tb], "prefill_ms": prefill_ms,
         "decode_step_ms": step_ms,
-        "decode_step_profile": device_profile(step, iters=5),
+        "decode_step_profile": device_profile(step, iters=5, groups={
+            "paged_decode": "paged_decode_kernel", "cublas_gemm": "nvjet",
+            "elementwise": "elementwise_kernel"}),
         "prefill_profile": device_profile(lambda: paged_kv.paged_prefill(
-            params, toks, tl, pool, pids, FULL), iters=2)}
+            params, toks, tl, pool, pids, FULL), iters=2, groups={
+                "flash_fwd": "flash_fwd_kernel", "cublas_gemm": "nvjet",
+                "elementwise": "elementwise_kernel"})}
 
 
 def device_profile(fn, iters: int, groups=None) -> dict:
@@ -821,6 +863,57 @@ def device_profile(fn, iters: int, groups=None) -> dict:
                     for k, us, c in rows[:8]]}
 
 
+_MANGLED = re.compile(
+    r"\d+((?:flash|paged)_[a-z_]+kernel(?:_wgmma)?)I(\w+?)EE")
+_TEMPLATE_ARG = re.compile(r"(13__nv_bfloat16)|(f)|Li(\d+)")
+
+
+def function_name(mangled: str) -> str:
+    """`flash_fwd_kernel_wgmma<128>` for its mangled name."""
+    m = _MANGLED.search(mangled)
+    if not m:
+        return mangled
+    args = ["bf16" if bf else "float" if f else n
+            for bf, f, n in _TEMPLATE_ARG.findall(m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def kernel_functions(lib) -> dict:
+    """Per kernel function of the built library: registers and spill bytes
+    from ptxas's report in build.log, and the tensor-core instructions in
+    its SASS (`cuobjdump -sass`): HGMMA is wgmma, HMMA mma.sync."""
+    funcs, name = {}, None
+    log = (lib.parent / "build.log").read_text()
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = function_name(m.group(1))
+            funcs[name] = {"registers": None, "spill_bytes": None,
+                           "hgmma": 0, "hmma": 0}
+        elif name and "spill stores" in ln:
+            funcs[name]["spill_bytes"] = sum(
+                int(x) for x in re.findall(r"(\d+) bytes spill", ln))
+        elif name and "Used" in ln and "registers" in ln:
+            funcs[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    name = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            name = function_name(m.group(1))
+            funcs.setdefault(name, {"registers": None, "spill_bytes": None,
+                                    "hgmma": 0, "hmma": 0})
+        elif name and "HGMMA" in ln:
+            funcs[name]["hgmma"] += 1
+        elif name and "HMMA" in ln:
+            funcs[name]["hmma"] += 1
+    return funcs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -847,16 +940,19 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.library()
-    build_log = (_build.build().parent / "build.log")
+    lib = _build.build()
     build = {"phase": "build", "seconds": time.perf_counter() - t0,
-             "library": str(_build.build().relative_to(
-                 _build.PACKAGE_DIR.parent)),
-             "ptxas": [ln.strip() for ln in build_log.read_text()
-                       .splitlines()
-                       if "Used" in ln or "==" in ln or "spill" in ln]
-             if build_log.exists() else []}
+             "library": str(lib.relative_to(_build.PACKAGE_DIR.parent)),
+             "functions": kernel_functions(lib)}
     emit(build)
     record["build"] = build
+    tc = {name: f for name, f in build["functions"].items()
+          if name.startswith(TENSOR_CORE_KERNELS)}
+    if (len(tc) != len(flash.KERNEL_HEAD_DIMS) * len(TENSOR_CORE_KERNELS)
+            or any(f["hgmma"] + f["hmma"] == 0 or f["spill_bytes"]
+                   for f in tc.values())):
+        raise AssertionError(f"the bf16 K1/K3 kernels must be built, hold "
+                             f"HGMMA or HMMA and spill nothing: {tc}")
 
     timer = Timer(device)
     cases, worst = phase_kernels(device, timer, args.seed)

@@ -158,6 +158,17 @@ def _check_kernel_args(q, k, v):
                          f"rows, got {b}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel needs contiguous q, k, v")
+    _check_aligned(q, k, v)
+
+
+def _check_aligned(*xs):
+    """The bf16 kernels copy 16-byte chunks (cp.async): every bf16 operand
+    must start on a 16-byte boundary (a fresh allocation does; a view at an
+    odd offset may not)."""
+    for x in xs:
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError("flash kernel needs 16-byte aligned bfloat16 "
+                             "tensors, got one at an offset")
 
 
 def _flash_forward(q, k, v, causal: bool, want_lse: bool):
@@ -209,6 +220,7 @@ def _flash_backward(q, k, v, out, lse, do, causal: bool, g_lse=None):
             raise ValueError(f"flash backward needs a contiguous {name} "
                              f"shaped and typed like q, got "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    _check_aligned(do)
     if (lse.shape != (b, tq) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"flash backward needs a contiguous float32 lse of "

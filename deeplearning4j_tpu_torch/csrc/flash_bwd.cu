@@ -11,7 +11,7 @@
 //   dS = P * (dP - D)                   (D = rowsum(dO * O) - g_lse, given)
 //   dQ = sum over key tiles of  round(dS) K * scale          (K2)
 //   dV = sum over query tiles of round(P)^T dO               (K3)
-//   dK = sum over query tiles of round(dS)^T Q * scale       (K3)
+//   dK = (sum over query tiles of round(dS)^T Q) * scale     (K3)
 //
 // where round() is the cast to the inputs' dtype that the TPU kernels make
 // before each second product (:357-359, :413-416, :420-422). Causal masking
@@ -23,15 +23,40 @@
 // causal, bf16) K2 moves q, k, v, dO, dQ (bf16) and lse, D (float32) once,
 // 84 MB, 25 us at 3.35 TB/s, and does 6*hd operations per visible pair,
 // 26 GFLOP, 26 us at 989 TFLOP/s; K3 writes dK and dV as well and does 8*hd
-// per pair (about 35 us). Both sit at the ridge. This first version does
-// every product as float32 FMAs on the CUDA cores (no mma/wgmma, no TMA), so
-// it runs far below either limit: its design only keeps the score matrices
-// out of device memory, does no work above the causal diagonal, and needs
-// no float atomics. The next design moves the four products to wgmma on
-// bf16 tiles and stages Q/dO (K3) or K/V (K2) tiles with TMA, double
-// buffered.
+// per pair (100.7 MB, 30 us; 34.4 GFLOP, 35 us). Both sit at the ridge, so
+// every product has to run on the tensor cores, with the tile stream
+// overlapping them.
 //
-// Design:
+// K3, bf16 (`flash_bwd_dkv_kernel_wgmma`): one warpgroup per 64 keys (its
+// K/V tile resident in shared memory), walking 64-row Q tiles from the
+// first one that can see its keys. Every product is transposed so that its
+// A operand is K or V in shared memory or a tile already in registers, and
+// nothing is transposed through shared memory:
+// - S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16, both operands K-major
+//   in shared memory (hopper.cuh's swizzled tiles);
+// - P^T and dS^T on the accumulators in registers, with the
+//   __fmul_rn/__fsub_rn order of `p_and_ds`;
+// - dV += round(P^T) dO and dK += round(dS^T) Q: wgmma m64n{hd}k16 with A
+//   in registers (the accumulator fragment, rounded to bf16 pairwise) and
+//   B the dO or Q tile read MN-major (the transpose bit);
+// - Q, dO, lse and D of the next Q tile land by cp.async in a 2-stage ring
+//   while this one is multiplied;
+// - scale is applied to dK once at the end, as the plain version does
+//   (attention/flash.py), not per tile; dK and dV leave through shared
+//   memory as coalesced 16-byte stores.
+// The dK and dV accumulators take 128 registers a thread at hd 128, S^T
+// and dP^T 64 more, so one warpgroup holds 64 keys and the block stays at
+// 128 threads. Left for later: TMA loads, warp specialisation (a producer
+// warp, the consumers' registers raised), persistent blocks.
+//
+// K2 (both dtypes) and the float32 lane of K3 (`flash_bwd_dkv_kernel`)
+// are the scalar first versions: every product as float32 FMAs on the
+// CUDA cores, float32 tiles in shared memory padded by one word so the
+// column-strided reads of the score phase hit distinct banks (149 KB for
+// K2 and 166 KB for K3 at hd 128). Tensor cores would mean TF32 for
+// float32, too coarse for the float32 parity checks.
+//
+// Shared by every version:
 // - K2: one block per (batch*head, 64-row Q tile), looping over 64-row K/V
 //   tiles up to the diagonal; K3: one block per (batch*head, 64-row K/V
 //   tile), looping over Q tiles from the first one that can see it. The
@@ -39,18 +64,16 @@
 //   dQ needs no atomics and both outputs are the same run to run;
 // - only tiles that cross the diagonal or a ragged T edge compute a mask,
 //   so every Tq and Tk runs here (the TPU sent T without a 128-aligned tile
-//   to the blockwise vjp);
-// - tiles are float32 in shared memory, rows padded by one word so the
-//   column-strided reads of the score phase hit distinct banks: 149 KB
-//   (K2) and 166 KB (K3) at hd 128, above the 48 KB static limit, so the
-//   launch asks for dynamic shared memory with cudaFuncSetAttribute.
+//   to the blockwise vjp).
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace dl4j;
+namespace hw = dl4j::hopper;
 
 constexpr int kBlockM = 64;  // query rows per Q tile
 constexpr int kBlockN = 64;  // key rows per K/V tile
@@ -237,14 +260,158 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// --------------------------------------------------------- K3: dK, dV
-template <typename T, int HD>
+// ------------------------------------------- K3 bf16: dK, dV on wgmma
+constexpr int kDkvThreads = 128;  // one warpgroup per 64 keys
+
+template <int HD>
+constexpr size_t dkv_wgmma_smem_bytes() {
+  // K, V; 2 stages of (Q, dO); 2 stages of (lse, D) rows; alignment slack
+  return 6 * hw::tile_bytes<HD>() + 2 * 2 * kBlockM * sizeof(float) + 1024;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_bwd_dkv_kernel_wgmma(
+        const hw::bf16* __restrict__ q, const hw::bf16* __restrict__ k,
+        const hw::bf16* __restrict__ v, const hw::bf16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ dd,
+        hw::bf16* __restrict__ dk, hw::bf16* __restrict__ dv, int tq, int tk,
+        int causal, float scale, float scale2) {
+  constexpr uint32_t kTile = hw::tile_bytes<HD>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);  // generic pointer to `base`
+  const uint32_t sk = base, sv = base + kTile;
+  const uint32_t sqd = base + 2 * kTile;  // stage s: Q + 2s, dO + 2s + 1
+  // stage s: lse at rows + 2s * kBlockM, D at rows + (2s + 1) * kBlockM
+  const uint32_t srows = base + 6 * kTile;
+  const float* rows = reinterpret_cast<const float*>(smem + 6 * kTile);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kBlockN;
+  const int offset = tk - tq;
+  const hw::bf16* qb = q + (size_t)bh * tq * HD;
+  const hw::bf16* dob = dout + (size_t)bh * tq * HD;
+  const float* lseb = lse + (size_t)bh * tq;
+  const float* ddb = dd + (size_t)bh * tq;
+
+  // the first query row that sees key k0 is k0 - offset: Q tiles before
+  // its tile see none of this K/V tile and are skipped
+  const int q_begin = causal ? max(0, k0 - offset) / kBlockM * kBlockM : 0;
+  const int n_tiles = q_begin < tq ? (tq - q_begin + kBlockM - 1) / kBlockM
+                                   : 0;
+  // Q, dO, lse and D of the query rows [q0, q0 + 64) into stage `st`
+  auto load_q_tile = [&](int st, int q0) {
+    hw::load_tile<HD, kDkvThreads>(sqd + 2 * st * kTile, qb, q0, tq, tid);
+    hw::load_tile<HD, kDkvThreads>(sqd + (2 * st + 1) * kTile, dob, q0, tq,
+                                   tid);
+    const int r = tid % kBlockM, which = tid / kBlockM;  // 0 lse, 1 D
+    const bool in = q0 + r < tq;
+    hw::cp_async4(srows + ((2 * st + which) * kBlockM + r) * 4,
+                  (which ? ddb : lseb) + (in ? q0 + r : 0), in);
+  };
+
+  hw::load_tile<HD, kDkvThreads>(sk, k + (size_t)bh * tk * HD, k0, tk, tid);
+  hw::load_tile<HD, kDkvThreads>(sv, v + (size_t)bh * tk * HD, k0, tk, tid);
+  if (n_tiles > 0) load_q_tile(0, q_begin);
+  hw::cp_async_commit();
+
+  // key rows kr (h 0) and kr + 8 (h 1); query columns 8j + col + e
+  const int kr = k0 + warp * 16 + lane / 4;
+  const int col = 2 * (lane % 4);
+  float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * kBlockM;
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {  // the next Q tile into the other stage
+      load_q_tile(st ^ 1, q0 + kBlockM);
+      hw::cp_async_commit();
+      hw::cp_async_wait<1>();
+    } else {
+      hw::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t sq = sqd + 2 * st * kTile, sdo = sq + kTile;
+    const float* lse_s = rows + 2 * st * kBlockM;
+    const float* dd_s = lse_s + kBlockM;
+
+    float s[32] = {}, dp[32] = {};
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hw::wgmma_ss_m64n64(s, hw::desc_k(sk, kk), hw::desc_k(sq, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hw::wgmma_ss_m64n64(dp, hw::desc_k(sv, kk), hw::desc_k(sdo, kk),
+                          kk > 0);
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(s);
+    hw::fence_regs(dp);
+
+    const bool masked = tile_masked(q0, k0, tq, tk, causal, offset);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e, c = 8 * j + col + e;
+          const bool ok =
+              !masked || visible(q0 + c, kr + 8 * h, tq, tk, causal, offset);
+          p_and_ds(s[i], dp[i], __fmul_rn(lse_s[c], kLog2e), dd_s[c], scale2,
+                   ok, &s[i], &dp[i]);
+        }
+    uint32_t pa[4][4], da[4][4];  // P^T and dS^T rounded to bf16
+    hw::to_a(s, pa);
+    hw::to_a(dp, da);
+    hw::fence_regs(dva);
+    hw::fence_regs(dka);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hw::wgmma_rs<HD>(dva, pa[kk], hw::desc_mn(sdo, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hw::wgmma_rs<HD>(dka, da[kk], hw::desc_mn(sq, kk));
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dva);
+    hw::fence_regs(dka);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hw::fence_regs(pa[kk]);
+      hw::fence_regs(da[kk]);
+    }
+    __syncthreads();  // every read of this stage is done before its refill
+  }
+  hw::cp_async_wait<0>();  // K/V copies still in flight when n_tiles == 0
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] *= scale;
+  // stage 0's Q and dO tiles are free: dK and dV leave through them
+  const size_t o = ((size_t)bh * tk + k0) * HD;
+  hw::store_tile<HD>(dka, smem + 2 * kTile, dk + o, tk - k0, tid, 0);
+  hw::store_tile<HD>(dva, smem + 3 * kTile, dv + o, tk - k0, tid, 0);
+}
+
+// ------------------------------------------- K3 float32: dK, dV
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ dd, T* __restrict__ dk,
-                         T* __restrict__ dv, int tq, int tk, int causal,
+                         const float* __restrict__ dd, float* __restrict__ dk,
+                         float* __restrict__ dv, int tq, int tk, int causal,
                          float scale, float scale2) {
   constexpr int QS = HD + 1;
   constexpr int NACC = HD / 4;  // dK and dV columns per thread
@@ -253,8 +420,8 @@ __global__ void __launch_bounds__(kThreads)
   float* vs = ks + kBlockN * QS;   // kBlockN x QS
   float* qs = vs + kBlockN * QS;   // kBlockM x QS
   float* dos = qs + kBlockM * QS;  // kBlockM x QS
-  float* ps = dos + kBlockM * QS;  // kBlockM x kSS, P rounded to T
-  float* dss = ps + kBlockM * kSS;  // kBlockM x kSS, dS rounded to T
+  float* ps = dos + kBlockM * QS;  // kBlockM x kSS, P
+  float* dss = ps + kBlockM * kSS;  // kBlockM x kSS, dS
   float* lse2_s = dss + kBlockM * kSS;
   float* dd_s = lse2_s + kBlockM;
 
@@ -262,13 +429,13 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.x * kBlockN;
   const int tid = threadIdx.x;
   const int offset = tk - tq;
-  const T* qb = q + (size_t)bh * tq * HD;
-  const T* dob = dout + (size_t)bh * tq * HD;
+  const float* qb = q + (size_t)bh * tq * HD;
+  const float* dob = dout + (size_t)bh * tq * HD;
   const float* lseb = lse + (size_t)bh * tq;
   const float* ddb = dd + (size_t)bh * tq;
 
-  load_tile<T, HD>(ks, k + (size_t)bh * tk * HD, k0, tk);
-  load_tile<T, HD>(vs, v + (size_t)bh * tk * HD, k0, tk);
+  load_tile<float, HD>(ks, k + (size_t)bh * tk * HD, k0, tk);
+  load_tile<float, HD>(vs, v + (size_t)bh * tk * HD, k0, tk);
 
   const int ty = tid / 16, tx = tid % 16;  // score phase
   const int kr = tid / 4, sub = tid % 4;   // dK/dV phase: 4 threads a key
@@ -281,8 +448,8 @@ __global__ void __launch_bounds__(kThreads)
   const int q_begin = causal ? max(0, k0 - offset) / kBlockM * kBlockM : 0;
   for (int q0 = q_begin; q0 < tq; q0 += kBlockM) {
     __syncthreads();  // the previous tile's reads of qs, dos, ps, dss done
-    load_tile<T, HD>(qs, qb, q0, tq);
-    load_tile<T, HD>(dos, dob, q0, tq);
+    load_tile<float, HD>(qs, qb, q0, tq);
+    load_tile<float, HD>(dos, dob, q0, tq);
     load_rows(lse2_s, dd_s, lseb, ddb, q0, tq);
     __syncthreads();
 
@@ -298,8 +465,8 @@ __global__ void __launch_bounds__(kThreads)
             !masked || visible(q0 + r, k0 + c, tq, tk, causal, offset);
         float p, ds;
         p_and_ds(s[i][j], dp[i][j], lse2_s[r], dd_s[r], scale2, ok, &p, &ds);
-        ps[r * kSS + c] = round_to<T>(p);
-        dss[r * kSS + c] = round_to<T>(ds);
+        ps[r * kSS + c] = p;
+        dss[r * kSS + c] = ds;
       }
     }
     __syncthreads();
@@ -327,8 +494,8 @@ __global__ void __launch_bounds__(kThreads)
     const size_t o = ((size_t)bh * tk + k0 + kr) * HD + sub;
 #pragma unroll
     for (int j = 0; j < NACC; ++j) {
-      dk[o + 4 * j] = from_f32<T>(dk_acc[j]);
-      dv[o + 4 * j] = from_f32<T>(dv_acc[j]);
+      dk[o + 4 * j] = dk_acc[j];
+      dv[o + 4 * j] = dv_acc[j];
     }
   }
 }
@@ -361,13 +528,13 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dd,
                        void* dk, void* dv, int bh, int tq, int tk, int causal,
                        cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<HD>();
-  auto kern = flash_bwd_dkv_kernel<T, HD>;
+  auto kern = flash_bwd_dkv_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -375,11 +542,34 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   scales(HD, &scale, &scale2);
   const dim3 grid((tk + kBlockN - 1) / kBlockN, bh);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, causal, scale,
-      scale2);
+      static_cast<float*>(dk), static_cast<float*>(dv), tq, tk, causal,
+      scale, scale2);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* dd, void* dk, void* dv, int bh,
+                             int tq, int tk, int causal,
+                             cudaStream_t stream) {
+  const size_t smem = dkv_wgmma_smem_bytes<HD>();
+  auto kern = flash_bwd_dkv_kernel_wgmma<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  float scale, scale2;
+  scales(HD, &scale, &scale2);
+  const dim3 grid((tk + kBlockN - 1) / kBlockN, bh);
+  kern<<<grid, kDkvThreads, smem, stream>>>(
+      static_cast<const hw::bf16*>(q), static_cast<const hw::bf16*>(k),
+      static_cast<const hw::bf16*>(v), static_cast<const hw::bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dd),
+      static_cast<hw::bf16*>(dk), static_cast<hw::bf16*>(dv), tq, tk, causal,
+      scale, scale2);
   return cudaGetLastError();
 }
 
@@ -408,7 +598,8 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// as above, with dk, dv (bh, tk, hd) as the outputs
+// as above, with dk, dv (bh, tk, hd) as the outputs; bf16 ones 16-byte
+// aligned
 extern "C" int dl4j_flash_bwd_dkv(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* dd, void* dk,
@@ -416,16 +607,16 @@ extern "C" int dl4j_flash_bwd_dkv(const void* q, const void* k,
                                   int dtype, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32 && hd == 64)
-    return launch_dkv<float, 64>(q, k, v, dout, lse, dd, dk, dv, bh, tq, tk,
-                                 causal, st);
+    return launch_dkv<64>(q, k, v, dout, lse, dd, dk, dv, bh, tq, tk, causal,
+                          st);
   if (dtype == kFloat32 && hd == 128)
-    return launch_dkv<float, 128>(q, k, v, dout, lse, dd, dk, dv, bh, tq, tk,
-                                  causal, st);
+    return launch_dkv<128>(q, k, v, dout, lse, dd, dk, dv, bh, tq, tk, causal,
+                           st);
   if (dtype == kBFloat16 && hd == 64)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, dd, dk, dv, bh,
-                                         tq, tk, causal, st);
+    return launch_dkv_wgmma<64>(q, k, v, dout, lse, dd, dk, dv, bh, tq, tk,
+                                causal, st);
   if (dtype == kBFloat16 && hd == 128)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, dd, dk, dv, bh,
-                                          tq, tk, causal, st);
+    return launch_dkv_wgmma<128>(q, k, v, dout, lse, dd, dk, dv, bh, tq, tk,
+                                 causal, st);
   return cudaErrorInvalidValue;
 }

@@ -57,7 +57,8 @@ class TestFlashForward:
 
     @pytest.mark.parametrize("causal", [False, True])
     @pytest.mark.parametrize("tq,tk", [(1, 1), (37, 37), (100, 100),
-                                       (20, 50), (16, 128)])
+                                       (20, 50), (16, 128), (65, 65),
+                                       (129, 129)])
     def test_ragged_and_short_q_match_blockwise(self, tq, tk, causal):
         """T with no 128-aligned tile (the TPU sends those to blockwise;
         the card's kernel takes them) and Tq < Tk (bottom-right causal
@@ -118,6 +119,14 @@ class TestFlashForward:
         q, k, v = _qkv(1, 1, 16, 16, 64)
         flash.flash_attention(_t(q), _t(k), _t(v), True)
         assert flash.launches == before
+
+    def test_misaligned_bf16_operand_raises(self):
+        """The bf16 kernels copy 16-byte chunks: a view one value in is
+        refused before any launch."""
+        x = torch.zeros(8 + 16 * 64, dtype=torch.bfloat16)
+        flash._check_aligned(x[8:].view(1, 16, 64), x[1:].float())
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash._check_aligned(x[1:-7].view(1, 16, 64))
 
     def test_non_cpu_non_cuda_tensor_raises(self):
         q = torch.empty((1, 16, 64), device="meta")
@@ -230,6 +239,14 @@ class TestPagedAttention:
 
 
 # ------------------------------------------------------- on the card only
+#: the edges of the bf16 kernels' tiling (64-key tiles, 64-row warpgroups,
+#: 128-row forward blocks): one row, a tile less or more one, Tq < Tk,
+#: Tq > Tk (causal rows that see no key), at both head dims
+EDGE_SHAPES = [(t, t, hd) for hd in (64, 128) for t in (1, 63, 65, 129, 1000)]
+EDGE_SHAPES += [(tq, tk, hd) for hd in (64, 128)
+                for tq, tk in ((64, 1024), (200, 37))]
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -241,7 +258,7 @@ def card():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("tq,tk,hd", [(100, 100, 64), (128, 128, 128),
-                                      (37, 200, 128)])
+                                      (37, 200, 128)] + EDGE_SHAPES)
 def test_flash_kernel_matches_plain_on_card(card, dtype, tol, tq, tk, hd):
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(4, t, hd, generator=g).to(card, dtype)
@@ -252,6 +269,10 @@ def test_flash_kernel_matches_plain_on_card(card, dtype, tol, tq, tk, hd):
         torch.cuda.synchronize()
         assert (out.float() - ref.float()).abs().max().item() <= tol
         assert torch.allclose(lse, ref_lse, atol=1e-3, rtol=1e-5)
+        # causal rows that see no key: exactly zero out, the +1e30 lse
+        no_key = max(tq - tk, 0) if causal else 0
+        assert (out[:, :no_key] == 0).all()
+        assert (lse[:, :no_key] == -flash.NEG_INF).all()
 
 
 @pytest.mark.cuda

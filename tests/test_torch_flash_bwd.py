@@ -27,6 +27,7 @@ import torch
 from deeplearning4j_tpu.attention import blockwise as jax_blockwise
 from deeplearning4j_tpu.attention import flash_pallas as jax_flash
 from deeplearning4j_tpu_torch.attention import blockwise, flash
+from tests.test_torch_attention import EDGE_SHAPES
 
 TOL = 3e-5
 BF16_REL = 2e-2
@@ -116,7 +117,8 @@ class TestGradsMatchJax:
 
     @pytest.mark.parametrize("causal", [False, True])
     @pytest.mark.parametrize("tq,tk", [(1, 1), (37, 37), (100, 100),
-                                       (20, 50), (50, 20)])
+                                       (20, 50), (50, 20), (65, 65),
+                                       (129, 129)])
     def test_ragged_matches_jax_blockwise_vjp(self, tq, tk, causal):
         """T with no 128-aligned tile: the TPU differentiates blockwise
         there, the card's kernels take them."""
@@ -237,7 +239,8 @@ def card():
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("tq,tk,hd", [(100, 100, 64), (128, 128, 128),
-                                      (37, 200, 128), (200, 37, 64)])
+                                      (37, 200, 128), (200, 37, 64)]
+                         + EDGE_SHAPES)
 def test_backward_kernels_match_plain_on_card(card, dtype, rel, tq, tk, hd):
     g = torch.Generator().manual_seed(0)
     q, k, v, do = (torch.randn(4, t, hd, generator=g).to(card, dtype)
@@ -252,3 +255,6 @@ def test_backward_kernels_match_plain_on_card(card, dtype, rel, tq, tk, hd):
         for a, b in zip(got, ref):
             scale = max(b.float().abs().max().item(), 1.0)
             assert (a.float() - b.float()).abs().max().item() <= rel * scale
+        # causal rows that see no key: exactly zero dQ
+        no_key = max(tq - tk, 0) if causal else 0
+        assert (got[0][:, :no_key] == 0).all()
