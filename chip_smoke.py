@@ -14,15 +14,18 @@ prints no result):
                   per kernel function, ptxas's registers and spill bytes
                   and, from `cuobjdump -sass` of the library, its HGMMA
                   (wgmma) and HMMA (mma.sync) instructions. Fails if a
-                  bf16 K1 or K3 instantiation holds neither or spills.
+                  bf16 K1, K2 or K3 instantiation holds neither or
+                  spills, or if a K4 split or combine instantiation is
+                  missing or spills.
 3. kernels      — every ported kernel against its plain PyTorch version on
                   the card: the flash forward (K1) at B*H = 64, T in
                   {1, 16, 63, 65, 100, 128, 129, 1000, 1024}, Tq 64 < Tk
                   1024 and Tq 200 > Tk 37 (the edges of the bf16 kernels'
                   64-key tiles and 128-row blocks), hd 64 and 128, causal
-                  or not; the paged decode (K4) at 8 slots, page_size 16,
-                  64 pages per slot, ragged cursors (0, ps-1, ps, the
-                  window edge, past it) and an idle all-trash slot.
+                  or not; the paged decode (K4) at 13 slots, page_size
+                  16, 64 pages per slot, ragged cursors (0, ps-1, ps, on
+                  the boundaries of its 64-position splits, the window
+                  edge, past it) and an idle all-trash slot.
                   float32 within 2e-5, bfloat16 within 2e-2 (unit-scale
                   inputs; the summation order differs). The float32 flash
                   cases are also held against blockwise_attention, the
@@ -109,12 +112,16 @@ SLOTS, PAGE_SIZE, N_REQUESTS, MAX_TOKENS = 8, 16, 16, 64
 #: forward blocks), Tq < Tk, and Tq > Tk (causal rows that see no key)
 FLASH_SHAPES = ([(t, t) for t in (1, 16, 63, 65, 100, 128, 129, 1000, 1024)]
                 + [(64, 1024), (200, 37)])
-#: how each kernel computes on the main path (bf16); every float32
+#: how each kernel computes on the main path (bf16); every float32 flash
 #: instantiation is a scalar f32 kernel (`build.functions` shows no HGMMA)
-DESIGN = {"flash_fwd": "wgmma+cp.async", "flash_bwd_dq": "scalar f32",
-          "flash_bwd_dkv": "wgmma+cp.async", "paged_decode": "scalar f32"}
+DESIGN = {"flash_fwd": "wgmma+cp.async", "flash_bwd_dq": "wgmma+cp.async",
+          "flash_bwd_dkv": "wgmma+cp.async",
+          "paged_decode": "split-page (cp.async 16-byte ring) + combine"}
 #: the bf16 kernels that must run on the tensor cores
-TENSOR_CORE_KERNELS = ("flash_fwd_kernel_wgmma", "flash_bwd_dkv_kernel_wgmma")
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel_wgmma", "flash_bwd_dq_kernel_wgmma",
+                       "flash_bwd_dkv_kernel_wgmma")
+#: K4's two kernels, launched once each by every wrapper call
+PAGED_KERNELS = ("paged_decode_split_kernel", "paged_decode_combine_kernel")
 #: the training path: B x (T + 1) tokens a batch, steps, batches, lr
 #: (at lr 0.01 and above, SGD with momentum 0.9 overshoots on this data
 #: after 3 steps and the loss climbs again)
@@ -139,10 +146,20 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: GPU clock cycles the device spins before each timed call (~1 ms at the
+#: H100's 1.98 GHz boost)
+HOLD_CYCLES = 2_000_000
+
+
 class Timer:
     """Per-call device time with CUDA events, the 50 MB L2 flushed before
     each call so every input is read from device memory, as the serving
-    loop finds it."""
+    loop finds it. The device spins for HOLD_CYCLES between the flush
+    and the start event, so the host has enqueued the call before the
+    device reaches it: the events time the device's work, not the host's
+    Python and launch overhead (which, for a kernel of ~10 us, is most
+    of an unheld measurement). A call whose enqueue outlasts the hold
+    (a whole model step) still includes the rest of its host time."""
 
     def __init__(self, device):
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
@@ -152,6 +169,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(HOLD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -307,7 +325,9 @@ def phase_kernels(device, timer, seed):
                         raise AssertionError(f"flash kernel disagrees: "
                                              f"{cases[-1]}")
     window = 64 * PAGE_SIZE
-    lengths = [0, PAGE_SIZE - 1, PAGE_SIZE, 345, window - 1, window, 700, 0]
+    run = paged.pages_per_split(PAGE_SIZE) * PAGE_SIZE  # positions a split
+    lengths = [0, PAGE_SIZE - 1, PAGE_SIZE, run - 1, run, 2 * run - 1,
+               2 * run, 345, 700, window - 1, window, window + 1, 0]
     for dtype in (torch.float32, torch.bfloat16):
         for hd in (64, 128):
             args = paged_inputs(gen, device, dtype, 8, hd, lengths)
@@ -316,7 +336,8 @@ def phase_kernels(device, timer, seed):
             torch.cuda.synchronize()
             err = max_err(out, ref)
             cases.append({
-                "kernel": "paged_decode", "dtype": str(dtype), "slots": 8,
+                "kernel": "paged_decode", "dtype": str(dtype),
+                "slots": len(lengths),
                 "heads": 8, "hd": hd, "page_size": PAGE_SIZE,
                 "table_width": 64, "lengths": lengths,
                 "max_abs_err": err, "ok": err <= TOL[dtype],
@@ -778,6 +799,7 @@ def main_path_timing(device, timer, params, plens, serve, seed, worst,
           "source": "deeplearning4j_tpu_torch/csrc/paged_decode.cu",
           "replaces": "deeplearning4j_tpu/attention/paged_pallas.py:51",
           "launches": launches["paged_decode"],
+          "kernel_functions": list(PAGED_KERNELS),
           "max_abs_err": max(worst["paged_decode"], p_err),
           "ms": timer.ms(lambda: paged.paged_attention(*args)),
           "plain_ms": timer.ms(lambda: paged.paged_attention_ref(*args),
@@ -812,7 +834,7 @@ def main_path_timing(device, timer, params, plens, serve, seed, worst,
         "prefill_group": [bb, tb], "prefill_ms": prefill_ms,
         "decode_step_ms": step_ms,
         "decode_step_profile": device_profile(step, iters=5, groups={
-            "paged_decode": "paged_decode_kernel", "cublas_gemm": "nvjet",
+            "paged_decode": "paged_decode", "cublas_gemm": "nvjet",
             "elementwise": "elementwise_kernel"}),
         "prefill_profile": device_profile(lambda: paged_kv.paged_prefill(
             params, toks, tl, pool, pids, FULL), iters=2, groups={
@@ -951,8 +973,16 @@ def main(argv=None) -> int:
     if (len(tc) != len(flash.KERNEL_HEAD_DIMS) * len(TENSOR_CORE_KERNELS)
             or any(f["hgmma"] + f["hmma"] == 0 or f["spill_bytes"]
                    for f in tc.values())):
-        raise AssertionError(f"the bf16 K1/K3 kernels must be built, hold "
-                             f"HGMMA or HMMA and spill nothing: {tc}")
+        raise AssertionError(f"the bf16 K1/K2/K3 kernels must be built, "
+                             f"hold HGMMA or HMMA and spill nothing: {tc}")
+    pk = {name: f for name, f in build["functions"].items()
+          if name.startswith(PAGED_KERNELS)}
+    if (len(pk) != len(paged.KERNEL_HEAD_DIMS) * len(PAGED_KERNELS)
+            * len(flash.KERNEL_DTYPES)
+            or any(f["spill_bytes"] for f in pk.values())):
+        raise AssertionError(f"K4's split and combine kernels must be "
+                             f"built for both dtypes and head dims and "
+                             f"spill nothing: {pk}")
 
     timer = Timer(device)
     cases, worst = phase_kernels(device, timer, args.seed)

@@ -27,6 +27,34 @@
 // every product has to run on the tensor cores, with the tile stream
 // overlapping them.
 //
+// K2, bf16 (`flash_bwd_dq_kernel_wgmma`): K3's tools with the roles of Q
+// and K/V swapped. A block of kDqWgs consumer warpgroups, each 64 query
+// rows with its Q and dO tiles resident in shared memory and its rows'
+// lse*log2(e) and D in registers; blocks start with the last rows, which
+// walk the most key tiles under causal masking. kDqWgs is 1: at the
+// training shape (B*H 64, T 1024, hd 128, causal) one warpgroup a block
+// (96 KB of shared memory, 196 registers, so two blocks share an SM and
+// one's softmax overlaps the other's products) ran 0.148 ms against
+// 0.159 ms for K1's two warpgroups sharing each K/V tile (one block an
+// SM), measured in one chip_smoke.py call on one H100. Per 64-key tile:
+// - S = Q K^T and dP = dO V^T: wgmma m64n64k16, both operands K-major in
+//   shared memory (K1's pairing);
+// - P and dS on the accumulators in registers (`p_and_ds`); the rows of
+//   the accumulator are query rows and its columns keys, so dS rounded
+//   to bf16 pairwise is already the register A operand of
+// - dQ += round(dS) K: wgmma m64n{hd}k16, K read MN-major (the layout K3
+//   reads dO with for dV += P^T dO);
+// - K and V of the next tile land by cp.async in a 2-stage ring while
+//   this one is multiplied;
+// - scale is applied to dQ once at the end, as the plain version does
+//   (attention/flash.py), where the scalar float32 kernel scales each
+//   tile's part before adding it. Only the rounding point differs, well
+//   inside the bf16 tolerance. dQ leaves through the warpgroup's Q tile
+//   as coalesced
+//   16-byte stores.
+// At hd 128 a thread holds dQ (64 registers), S and dP (64) and the dS
+// fragment (16), no spill.
+//
 // K3, bf16 (`flash_bwd_dkv_kernel_wgmma`): one warpgroup per 64 keys (its
 // K/V tile resident in shared memory), walking 64-row Q tiles from the
 // first one that can see its keys. Every product is transposed so that its
@@ -49,16 +77,16 @@
 // 128 threads. Left for later: TMA loads, warp specialisation (a producer
 // warp, the consumers' registers raised), persistent blocks.
 //
-// K2 (both dtypes) and the float32 lane of K3 (`flash_bwd_dkv_kernel`)
-// are the scalar first versions: every product as float32 FMAs on the
-// CUDA cores, float32 tiles in shared memory padded by one word so the
-// column-strided reads of the score phase hit distinct banks (149 KB for
-// K2 and 166 KB for K3 at hd 128). Tensor cores would mean TF32 for
-// float32, too coarse for the float32 parity checks.
+// The float32 lanes of K2 (`flash_bwd_dq_kernel`) and K3
+// (`flash_bwd_dkv_kernel`) are the scalar first versions: every product
+// as float32 FMAs on the CUDA cores, float32 tiles in shared memory padded
+// by one word so the column-strided reads of the score phase hit distinct
+// banks (149 KB for K2 and 166 KB for K3 at hd 128). Tensor cores would
+// mean TF32 for float32, too coarse for the float32 parity checks.
 //
 // Shared by every version:
-// - K2: one block per (batch*head, 64-row Q tile), looping over 64-row K/V
-//   tiles up to the diagonal; K3: one block per (batch*head, 64-row K/V
+// - K2: one block per (batch*head, 64-row Q tile), looping over 64-row
+//   K/V tiles up to the diagonal; K3: one block per (batch*head, 64-row K/V
 //   tile), looping over Q tiles from the first one that can see it. The
 //   loop takes the place of the TPU's sequential grid axis. Two kernels, so
 //   dQ needs no atomics and both outputs are the same run to run;
@@ -258,6 +286,156 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < NACC; ++j) orow[4 * j] = from_f32<T>(acc[j]);
   }
+}
+
+// ---------------------------------------------- K2 bf16: dQ on wgmma
+constexpr int kDqWgs = 1;                 // consumer warpgroups per block
+constexpr int kDqThreads = 128 * kDqWgs;
+constexpr int kDqRows = kBlockM * kDqWgs;  // query rows per block
+
+template <int HD>
+constexpr size_t dq_wgmma_smem_bytes() {
+  // Q and dO of each warpgroup; 2 stages of (K, V); alignment slack
+  return (2 * kDqWgs + 4) * hw::tile_bytes<HD>() + 1024;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_kernel_wgmma(
+        const hw::bf16* __restrict__ q, const hw::bf16* __restrict__ k,
+        const hw::bf16* __restrict__ v, const hw::bf16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ dd,
+        hw::bf16* __restrict__ dq, int tq, int tk, int causal, float scale,
+        float scale2) {
+  constexpr uint32_t kTile = hw::tile_bytes<HD>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);  // generic pointer to `base`
+  const uint32_t sq = base;                    // warpgroup w's Q: + w * kTile
+  const uint32_t sdo = base + kDqWgs * kTile;  // w's dO: + w * kTile
+  // ring stage s: K at + 2s tiles, V at + 2s + 1
+  const uint32_t skv = base + 2 * kDqWgs * kTile;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, wtid = tid % 128;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;
+  const int q0w = q0 + wg * kBlockM;  // this warpgroup's first row
+  const int offset = tk - tq;         // causal offset, bottom-right
+  const hw::bf16* qb = q + (size_t)bh * tq * HD;
+  const hw::bf16* dob = dout + (size_t)bh * tq * HD;
+  const hw::bf16* kb = k + (size_t)bh * tk * HD;
+  const hw::bf16* vb = v + (size_t)bh * tk * HD;
+
+  // keys the block may see, and this warpgroup's share of them (none for
+  // a warpgroup wholly past Tq); key tiles wholly above the diagonal are
+  // skipped, and a block whose rows see no key (causal Tq > Tk) runs no
+  // tile and stores zeros
+  const int k_end = causal ? min(tk, q0 + kDqRows + offset) : tk;
+  const int n_tiles = k_end > 0 ? (k_end + kBlockN - 1) / kBlockN : 0;
+  const int wg_end =
+      q0w >= tq ? 0 : causal ? min(tk, q0w + kBlockM + offset) : tk;
+
+#pragma unroll
+  for (int w = 0; w < kDqWgs; ++w) {
+    hw::load_tile<HD, kDqThreads>(sq + w * kTile, qb, q0 + w * kBlockM, tq,
+                                  tid);
+    hw::load_tile<HD, kDqThreads>(sdo + w * kTile, dob, q0 + w * kBlockM,
+                                  tq, tid);
+  }
+  if (n_tiles > 0) {
+    hw::load_tile<HD, kDqThreads>(skv, kb, 0, tk, tid);
+    hw::load_tile<HD, kDqThreads>(skv + kTile, vb, 0, tk, tid);
+  }
+  hw::cp_async_commit();
+
+  // rows r_a = q0w + 16 warp + lane/4 (h 0) and r_a + 8 (h 1), the
+  // accumulator's rows; their lse * log2(e) and D once, 0 past Tq (those
+  // rows are masked by `visible`, not by the sentinel)
+  const int r_a = q0w + warp * 16 + lane / 4;
+  const int col = 2 * (lane % 4);
+  const float* lseb = lse + (size_t)bh * tq;
+  const float* ddb = dd + (size_t)bh * tq;
+  float lse2[2], d_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r_a + 8 * h;
+    lse2[h] = r < tq ? __fmul_rn(lseb[r], kLog2e) : 0.f;
+    d_row[h] = r < tq ? ddb[r] : 0.f;
+  }
+  float dqa[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kBlockN;
+    const uint32_t sk = skv + (it & 1) * 2 * kTile, sv = sk + kTile;
+    if (it + 1 < n_tiles) {  // the next tile into the other stage
+      const uint32_t nk = skv + ((it + 1) & 1) * 2 * kTile;
+      hw::load_tile<HD, kDqThreads>(nk, kb, k0 + kBlockN, tk, tid);
+      hw::load_tile<HD, kDqThreads>(nk + kTile, vb, k0 + kBlockN, tk, tid);
+      hw::cp_async_commit();
+      hw::cp_async_wait<1>();
+    } else {
+      hw::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (k0 < wg_end) {
+      float s[32] = {}, dp[32] = {};
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hw::wgmma_ss_m64n64(s, hw::desc_k(sq + wg * kTile, kk),
+                            hw::desc_k(sk, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hw::wgmma_ss_m64n64(dp, hw::desc_k(sdo + wg * kTile, kk),
+                            hw::desc_k(sv, kk), kk > 0);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(s);
+      hw::fence_regs(dp);
+
+      const bool masked = tile_masked(q0w, k0, tq, tk, causal, offset);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            const bool ok =
+                !masked || visible(r_a + 8 * h, k0 + 8 * j + col + e, tq,
+                                   tk, causal, offset);
+            p_and_ds(s[i], dp[i], lse2[h], d_row[h], scale2, ok, &s[i],
+                     &dp[i]);
+          }
+      uint32_t da[4][4];  // dS rounded to bf16, the A operand of dS K
+      hw::to_a(dp, da);
+      hw::fence_regs(dqa);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hw::wgmma_rs<HD>(dqa, da[kk], hw::desc_mn(sk, kk));
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(dqa);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hw::fence_regs(da[kk]);
+    }
+    __syncthreads();  // every read of this stage is done before its refill
+  }
+  hw::cp_async_wait<0>();  // Q/dO copies still in flight when n_tiles == 0
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] *= scale;
+  // this warpgroup's Q tile is free once its last product is done
+  hw::store_tile<HD>(dqa, smem + wg * kTile,
+                     dq + ((size_t)bh * tq + q0w) * HD, tq - q0w, wtid, wg);
 }
 
 // ------------------------------------------- K3 bf16: dK, dV on wgmma
@@ -529,6 +707,27 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 }
 
 template <int HD>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* dd,
+                            void* dq, int bh, int tq, int tk, int causal,
+                            cudaStream_t stream) {
+  const size_t smem = dq_wgmma_smem_bytes<HD>();
+  auto kern = flash_bwd_dq_kernel_wgmma<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  float scale, scale2;
+  scales(HD, &scale, &scale2);
+  const dim3 grid((tq + kDqRows - 1) / kDqRows, bh);
+  kern<<<grid, kDqThreads, smem, stream>>>(
+      static_cast<const hw::bf16*>(q), static_cast<const hw::bf16*>(k),
+      static_cast<const hw::bf16*>(v), static_cast<const hw::bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dd),
+      static_cast<hw::bf16*>(dq), tq, tk, causal, scale, scale2);
+  return cudaGetLastError();
+}
+
+template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dd,
                        void* dk, void* dv, int bh, int tq, int tk, int causal,
@@ -590,11 +789,11 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
     return launch_dq<float, 128>(q, k, v, dout, lse, dd, dq, bh, tq, tk,
                                  causal, st);
   if (dtype == kBFloat16 && hd == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, dd, dq, bh, tq,
-                                        tk, causal, st);
+    return launch_dq_wgmma<64>(q, k, v, dout, lse, dd, dq, bh, tq, tk, causal,
+                               st);
   if (dtype == kBFloat16 && hd == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, dd, dq, bh, tq,
-                                         tk, causal, st);
+    return launch_dq_wgmma<128>(q, k, v, dout, lse, dd, dq, bh, tq, tk,
+                                causal, st);
   return cudaErrorInvalidValue;
 }
 

@@ -151,18 +151,21 @@ class TestBlockwise:
 
 
 # ------------------------------------------------------------- paged (K4)
-def _paged_case(seed, dtype=np.float32):
-    """Pool of 20 pages + trash, page_size 4, 6 pages per slot. Slots:
-    cursor 0, ps - 1, ps, a mid cursor, the last window position, a
-    cursor past the window, and an idle slot whose table is all trash."""
+def _paged_case(seed, dtype=np.float32, ps=4, n_p=6, n_pages=20,
+                lengths=None):
+    """Pool of `n_pages` pages + trash, `n_p` pages per slot. Slots
+    (default): cursor 0, ps - 1, ps, a mid cursor, the last window
+    position, a cursor past the window, and an idle slot (the last)
+    whose table is all trash."""
     rng = np.random.default_rng(seed)
-    s_n, h, hd, ps, n_p, n_pages = 7, 2, 16, 4, 6, 20
+    if lengths is None:
+        lengths = [0, ps - 1, ps, 13, n_p * ps - 1, n_p * ps + 3, 0]
+    s_n, h, hd = len(lengths), 2, 16
     trash = n_pages
     q = rng.normal(size=(s_n, h, hd)).astype(dtype)
     kp = rng.normal(size=(n_pages + 1, h, ps, hd)).astype(dtype)
     vp = rng.normal(size=(n_pages + 1, h, ps, hd)).astype(dtype)
-    lengths = np.array([0, ps - 1, ps, 13, n_p * ps - 1, n_p * ps + 3, 0],
-                       np.int32)
+    lengths = np.array(lengths, np.int32)
     table = np.full((s_n, n_p), trash, np.int32)
     perm = rng.permutation(n_pages)
     nxt = 0
@@ -174,7 +177,82 @@ def _paged_case(seed, dtype=np.float32):
     return q, kp, vp, table, lengths
 
 
+def _split_case(seed, ps, n_p, dtype=np.float32):
+    """Several splits a slot: cursors on split boundaries (run - 1, run,
+    2 run - 1, 2 run), the last window position, one past it, far past
+    it, a cursor inside the first split (every later split empty) and an
+    idle all-trash slot."""
+    run = paged.pages_per_split(ps) * ps
+    window = n_p * ps
+    lengths = [run - 1, run, 2 * run - 1, 2 * run, window - 1, window,
+               window + 300, 5, 0]
+    return _paged_case(seed, dtype, ps=ps, n_p=n_p, n_pages=96,
+                       lengths=lengths)
+
+
+#: (page_size, pages per slot): 3 splits of 4 pages, 3 of 8 (the last
+#: short), and pages larger than a split (one page a split)
+SPLIT_SHAPES = [(16, 12), (8, 20), (128, 3)]
+
+
 class TestPagedAttention:
+    @pytest.mark.parametrize("ps,n_p", SPLIT_SHAPES)
+    def test_split_merge_matches_jax_kernel_and_plain(self, ps, n_p):
+        """The kernel's split-and-merge arithmetic, in its plain mirror,
+        against the JAX kernel in interpret mode and the plain version."""
+        q, kp, vp, table, lengths = _split_case(ps * 100 + n_p, ps, n_p)
+        ref = jax_paged.paged_attention(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(table), jnp.asarray(lengths), interpret=True)
+        args = (_t(q), _t(kp), _t(vp), _t(table), _t(lengths))
+        out, partial = paged.paged_attention_split_ref(*args)
+        n = -(-n_p // paged.pages_per_split(ps))
+        assert n > 1 or ps > paged.SPLIT_POSITIONS
+        assert partial.shape == (len(lengths), 2, n, 16 + 2)
+        _close(out, ref)
+        _close(out, paged.paged_attention_ref(*args).numpy())
+
+    @pytest.mark.parametrize("ps,n_p", SPLIT_SHAPES)
+    def test_split_partials_of_empty_splits_weigh_nothing(self, ps, n_p):
+        """A split past a slot's last written page holds m = NEG_INF,
+        l = 0, acc = 0; the merge gives it weight exactly 0, so nothing
+        is NaN, and a split holding positions has l > 0."""
+        q, kp, vp, table, lengths = _split_case(ps + n_p, ps, n_p)
+        out, partial = paged.paged_attention_split_ref(
+            _t(q), _t(kp), _t(vp), _t(table), _t(lengths))
+        assert torch.isfinite(out).all() and torch.isfinite(partial).all()
+        pps = paged.pages_per_split(ps)
+        for i, pos in enumerate(lengths):
+            last = max(0, min(int(pos) // ps, n_p - 1))
+            for sp in range(partial.shape[2]):
+                m, l = partial[i, :, sp, 16], partial[i, :, sp, 17]
+                if sp * pps > last:
+                    assert (m == paged.NEG_INF).all() and (l == 0).all()
+                    assert (partial[i, :, sp, :16] == 0).all()
+                else:
+                    assert (l > 0).all() and (m > paged.NEG_INF / 2).all()
+
+    def test_split_merge_bf16_stays_close_to_plain(self):
+        q, kp, vp, table, lengths = _split_case(5, 16, 12)
+        args = [_t(a) for a in (q, kp, vp)]
+        args = [a.bfloat16() for a in args] + [_t(table), _t(lengths)]
+        out, _ = paged.paged_attention_split_ref(*args)
+        assert out.dtype == torch.bfloat16
+        _close(out.float(), paged.paged_attention_ref(*args).float().numpy(),
+               tol=2e-2)
+
+    def test_misaligned_q_or_pool_raises(self):
+        """The kernel reads q and copies K/V in 16-byte vectors, in both
+        dtypes: a view one value in is refused before any launch."""
+        for dtype, vals in ((torch.bfloat16, 8), (torch.float32, 4)):
+            x = torch.zeros(vals + 2 * 16 * 64, dtype=dtype)
+            ok = x[vals:].view(2, 16, 64)
+            paged._check_aligned(ok, ok, ok)
+            bad = x[1:1 + 2 * 16 * 64].view(2, 16, 64)
+            for args in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+                with pytest.raises(ValueError, match="16-byte aligned"):
+                    paged._check_aligned(*args)
+
     def test_matches_jax_kernel_interpret(self):
         q, kp, vp, table, lengths = _paged_case(0)
         ref = jax_paged.paged_attention(
@@ -276,13 +354,20 @@ def test_flash_kernel_matches_plain_on_card(card, dtype, tol, tq, tk, hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-5)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
 def test_paged_kernel_matches_plain_on_card(card, dtype, tol):
-    q, kp, vp, table, lengths = _paged_case(3)
-    q, kp, vp = (torch.from_numpy(np.repeat(a, 8, axis=-1)).to(card)
-                 for a in (q, kp, vp))  # head dim 16 -> 128
-    table, lengths = _t(table).to(card), _t(lengths).to(card)
-    out = paged.paged_attention(q, kp, vp, table, lengths)
-    ref = paged.paged_attention_ref(q, kp, vp, table, lengths)
-    torch.cuda.synchronize()
-    assert (out - ref).abs().max().item() <= tol
+    """The small case, then long cursors that cross several splits (on
+    split boundaries, past the window, an idle slot), at both head dims
+    and page sizes 16, 8 and 128."""
+    cases = [(_paged_case(3), 8)]  # head dim 16 -> 128
+    cases += [(_split_case(4 + ps, ps, n_p), rep)
+              for ps, n_p in SPLIT_SHAPES for rep in (4, 8)]
+    for (q, kp, vp, table, lengths), rep in cases:
+        q, kp, vp = (torch.from_numpy(np.repeat(a, rep, axis=-1))
+                     .to(card, dtype) for a in (q, kp, vp))
+        table, lengths = _t(table).to(card), _t(lengths).to(card)
+        out = paged.paged_attention(q, kp, vp, table, lengths)
+        ref = paged.paged_attention_ref(q, kp, vp, table, lengths)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= tol
