@@ -60,11 +60,38 @@ prints no result):
                   below half the first step's, and K1, K2 and K3 each
                   launched exactly n_layers times a step (counted).
                   Tokens/s and step ms by CUDA events.
+8. multilayer_parity — the layer network (MultiLayerNetwork) at full
+                  width, float32, card against CPU on the same weights:
+                  LeNet as __graft_entry__.entry() builds it, the MLP
+                  784-2048-1024-10 and the row-sequence attention stack
+                  (reshape to 28 x 28 -> self_attention 28 -> 128, one
+                  head of 128 -> flatten -> softmax output 784 -> 10), at
+                  batch 64: the outputs, then the params after 2 fit
+                  steps over an iterator through the DeviceFeed (64
+                  rows, then 40 padded to 64 and masked); limits in
+                  ML_PARITY_TOL.
+9. multilayer_train — the layer network's main path at the BASELINE
+                  widths, bfloat16 products, on synthetic_mnist: the MLP
+                  (batch 4096, AdaGrad lr 0.05, 16 batches), LeNet (batch
+                  1024, SGD lr 0.05, 8 batches) and the attention stack
+                  (batch 1024, SGD lr 0.05, 8 batches). Two epochs of
+                  fit_scan one batch a call (each step timed by CUDA
+                  events), one whole fit_scan epoch under
+                  torch.cuda.set_sync_debug_mode("error") (no host sync
+                  may happen inside it), then whole epochs until the last
+                  loss is below half the first (at most bench.py's epoch
+                  count), then Evaluation of output() on 2048 held-out
+                  rows. Every loss finite, the last below half the first,
+                  and on the attention stack K1, K2 and K3 each launched
+                  once a step (K1 once more for output()). One step of
+                  each model profiled.
 
 Then, at each path's shapes: each kernel's time beside its plain
 version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3;
 the median of 3 separate batches, all three recorded) and its bound, one
-whole prefill, decode step and training step, each profiled. The last
+whole prefill, decode step and training step, each profiled; K1, K2 and
+K3 also at the attention stack's shape (B*H 1024, T 28, hd 128, not
+causal). The last
 lines are the card as nvidia-smi gives it, the kernels' JSON line (with
 each kernel's design), and {"ok": true, "device": {...}}.
 """
@@ -87,9 +114,18 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import _build
 from deeplearning4j_tpu_torch.attention import blockwise, flash, paged
+from deeplearning4j_tpu_torch.config import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+from deeplearning4j_tpu_torch.datasets.mnist import synthetic_mnist
+from deeplearning4j_tpu_torch.eval import Evaluation
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig, fit_scan, init_transformer_params, init_velocity,
     lm_loss_and_grads, make_train_step)
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.preprocessors import (
+    ConvolutionInputPreProcessor, ConvolutionPostProcessor,
+    ReshapePreProcessor)
+from deeplearning4j_tpu_torch.ops.products import bf16_product_route
 from deeplearning4j_tpu_torch.serving import paged_kv
 from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
 from deeplearning4j_tpu_torch.weights import params_to_device
@@ -132,6 +168,19 @@ TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_BATCHES, TRAIN_LR = 8, 1024, 10, 4, 5e-3
 #: after 2 steps (absolute; parameters are ~0.02)
 TRAIN_PARITY_TOL = {"loss": 2e-5, "grad": 1e-4, "embed_grad": 1e-4,
                     "params": 2e-6}
+#: layer network, card vs CPU, float32: output probabilities (absolute;
+#: sums of up to 2048 products in another order), params after 2 fit
+#: steps (absolute; an AdaGrad step moves a weight by up to lr / batch =
+#: 1.6e-3, and a gradient within rounding of zero may take the other
+#: sign, moving that weight by up to lr / batch * |g| / (|g| + 1e-6))
+ML_PARITY_TOL = {"forward": 1e-5, "params": 1e-4}
+ML_PARITY_BATCH = 64
+ML_PARITY_TAIL = 40  # rows of the second, ragged fit batch
+#: the layer network's training path: (batch, batches, the most epochs
+#: to train until the loss halves: bench.py's epoch counts) per model
+ML_TRAIN = {"mlp": (4096, 16, 16), "lenet": (1024, 8, 32),
+            "attention": (1024, 8, 32)}
+ML_EVAL_ROWS = 2048
 
 
 def emit(obj) -> None:
@@ -842,12 +891,260 @@ def main_path_timing(device, timer, params, plens, serve, seed, worst,
                 "elementwise": "elementwise_kernel"})}
 
 
+# ------------------------------------------------------- layer network
+def mlp_conf(compute_dtype):
+    """BASELINE config 1 (bench.py:79-96): 784-2048-1024-10, AdaGrad."""
+    return (NeuralNetConfiguration.builder()
+            .lr(0.05).n_in(784).activation_function("relu")
+            .optimization_algo("iteration_gradient_descent")
+            .num_iterations(1).batch_size(ML_TRAIN["mlp"][0])
+            .compute_dtype(compute_dtype)
+            .list(3).hidden_layer_sizes([2048, 1024])
+            .override(2, layer="output", loss_function="mcxent",
+                      activation_function="softmax", n_out=10)
+            .pretrain(False).build())
+
+
+def lenet_builder():
+    """LeNet-5 as __graft_entry__.entry() builds it: two 5x5 conv + 2x2
+    pool layers (6, 16 maps), dense 256 -> 120, softmax output."""
+    return (NeuralNetConfiguration.builder()
+            .activation_function("relu").num_iterations(1))
+
+
+def lenet_layers(builder):
+    return (builder.list(4)
+            .override(0, layer="conv", filter_size=[5, 5], stride=[2, 2],
+                      num_in_feature_maps=1, num_feature_maps=6)
+            .override(1, layer="conv", filter_size=[5, 5], stride=[2, 2],
+                      num_in_feature_maps=6, num_feature_maps=16)
+            .override(2, layer="dense", n_in=4 * 4 * 16, n_out=120)
+            .override(3, layer="output", loss_function="mcxent",
+                      activation_function="softmax", n_in=120, n_out=10)
+            .input_preprocessor(0, ConvolutionInputPreProcessor(28, 28, 1))
+            .input_preprocessor(2, ConvolutionPostProcessor())
+            .pretrain(False).build())
+
+
+def lenet_conf(compute_dtype):
+    """BASELINE config 2 (bench.py:174-221): LeNet, SGD lr 0.05."""
+    return lenet_layers(lenet_builder().lr(0.05).use_adagrad(False)
+                        .batch_size(ML_TRAIN["lenet"][0])
+                        .compute_dtype(compute_dtype))
+
+
+def attention_conf(compute_dtype):
+    """Row-sequence MNIST: each image's 28 rows a sequence of 28-wide
+    tokens, self-attention 28 -> 128 (one head of 128), flattened into a
+    softmax output 784 -> 10; SGD lr 0.05."""
+    return (NeuralNetConfiguration.builder()
+            .lr(0.05).use_adagrad(False).num_iterations(1)
+            .batch_size(ML_TRAIN["attention"][0])
+            .compute_dtype(compute_dtype)
+            .list(2)
+            .override(0, layer="self_attention", n_in=28, n_out=128,
+                      n_heads=1)
+            .override(1, layer="output", loss_function="mcxent",
+                      activation_function="softmax", n_in=784, n_out=10)
+            .input_preprocessor(0, ReshapePreProcessor([28, 28]))
+            .input_preprocessor(1, ConvolutionPostProcessor())
+            .pretrain(False).build())
+
+
+def phase_multilayer_parity(device, seed):
+    """Each stack at full width, float32: a CPU net and a card net on the
+    same packed weights; the outputs, then the params after 2 fit steps
+    on the same batches (the second ragged, so masked)."""
+    confs = {"lenet": lenet_layers(lenet_builder()),
+             "mlp": mlp_conf("float32"), "attention": attention_conf(
+                 "float32")}
+    b = ML_PARITY_BATCH
+    x, y = synthetic_mnist(2 * b + ML_PARITY_TAIL, seed=seed)
+    out = {}
+    for name, conf in confs.items():
+        cpu = MultiLayerNetwork(conf, device="cpu")
+        card = MultiLayerNetwork.from_config_json(
+            cpu.to_json(), params=cpu.params(), device=device)
+        reset_flash_counts()
+        fwd = max_err(card.output(x[:b]).cpu(), cpu.output(x[:b]))
+        # 2 fit steps over an iterator, through the DeviceFeed (pinned
+        # copies on the card): a full batch, then a ragged one padded to
+        # the bucket and masked
+        rows = slice(b, 2 * b + ML_PARITY_TAIL)
+        data = DataSet(x[rows], y[rows])
+        card.fit(ListDataSetIterator(data, b))
+        cpu.fit(ListDataSetIterator(data, b))
+        torch.cuda.synchronize()
+        launches = flash_counts()
+        params = max_err(card.params().cpu(), cpu.params())
+        want = ({"flash_fwd": 3, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+                if name == "attention" else
+                {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+        out[name] = {"params": card.num_params(),
+                     "output_max_abs_diff": fwd,
+                     "params_after_2_steps_max_abs_diff": params,
+                     "launches": launches,
+                     "ok": (fwd <= ML_PARITY_TOL["forward"]
+                            and params <= ML_PARITY_TOL["params"]
+                            and launches == want)}
+    return {"dtype": "float32", "batch": b, "models": out,
+            "tolerances": ML_PARITY_TOL,
+            "ok": all(m["ok"] for m in out.values())}
+
+
+ML_GROUPS = {"flash_fwd": "flash_fwd_kernel",
+             "flash_bwd_dq": "flash_bwd_dq_kernel",
+             "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+             "cublas_gemm": ("nvjet", "gemm", "Kernel2"),
+             "unfold_cat": ("unfold", "CatArrayBatched"),
+             "casts_copies": "copy_kern",
+             "foreach_updater": "multi_tensor_apply",
+             "elementwise": "elementwise_kernel", "reduce": "reduce_kernel"}
+
+
+def train_multilayer(device, seed, name, conf):
+    """One stack's training path; see the module docstring (phase 9)."""
+    batch, n_batches, max_epochs = ML_TRAIN[name]
+    net = MultiLayerNetwork(conf, device=device)
+    x_np, y_np = synthetic_mnist(batch * n_batches + ML_EVAL_ROWS, seed=seed)
+    n = batch * n_batches
+    x = torch.from_numpy(x_np[:n]).to(device)
+    y = torch.from_numpy(y_np[:n]).to(device)
+    xb, yb = x.view(n_batches, batch, -1), y.view(n_batches, batch, -1)
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    losses, events = [], []
+    for _ in range(2):
+        for i in range(n_batches):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(net.fit_scan(xb[i], yb[i], batch, sync=False))
+            end.record()
+            events.append((start, end))
+    torch.cuda.synchronize()
+    losses = torch.stack(losses).tolist()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    # one whole fit_scan epoch in which no host sync may happen
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        last = net.fit_scan(x, y, batch, epochs=1, sync=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    end.record()
+    torch.cuda.synchronize()
+    epoch_ms = start.elapsed_time(end)
+    epoch_losses = [float(last)]
+    epochs = 3
+    while epoch_losses[-1] >= 0.5 * losses[0] and epochs < max_epochs:
+        epoch_losses.append(net.fit_scan(x, y, batch))
+        epochs += 1
+    ev = Evaluation()
+    ev.eval(y_np[n:], net.output(x_np[n:]))
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    steps = epochs * n_batches
+    want = ({"flash_fwd": steps + 1, "flash_bwd_dq": steps,
+             "flash_bwd_dkv": steps} if name == "attention" else
+            {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    every = losses + epoch_losses
+    steady = sorted(step_ms[1:])
+    p50 = steady[len(steady) // 2]
+    ok = (all(np.isfinite(every)) and every[-1] < 0.5 * losses[0]
+          and launches == want)
+    profile = device_profile(
+        lambda: net.fit_scan(xb[0], yb[0], batch, sync=False), iters=3,
+        groups=ML_GROUPS)
+    return {"params": net.num_params(), "batch": batch,
+            "batches": n_batches, "compute_dtype": conf.confs[0].compute_dtype,
+            "lr": conf.confs[0].lr, "adagrad": conf.confs[0].use_adagrad,
+            "step_losses": losses, "epoch_last_losses": epoch_losses,
+            "epochs": epochs, "steps": steps,
+            "step_ms": step_ms, "step_ms_p50": p50,
+            "samples_per_s_p50_step": batch / (p50 / 1e3),
+            "fit_scan_epoch_ms": epoch_ms,
+            "fit_scan_epoch_ms_per_step": epoch_ms / n_batches,
+            "samples_per_s_fit_scan_epoch": n / (epoch_ms / 1e3),
+            "no_host_sync_in_epoch": True,
+            "eval_rows": ML_EVAL_ROWS, "accuracy": ev.accuracy(),
+            "launches": launches, "launches_expected": want,
+            "step_profile": profile, "ok": ok}
+
+
+def phase_multilayer_train(device, seed):
+    models = {"mlp": mlp_conf("bfloat16"), "lenet": lenet_conf("bfloat16"),
+              "attention": attention_conf("bfloat16")}
+    out = {name: train_multilayer(device, seed, name, conf)
+           for name, conf in models.items()}
+    launches = {k: sum(m["launches"][k] for m in out.values())
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    return {"bf16_product": bf16_product_route(device), "models": out,
+            "launches": launches,
+            "ok": all(m["ok"] for m in out.values())}
+
+
+def multilayer_kernel_timing(device, timer, seed):
+    """K1, K2 and K3 at the attention stack's shape (B*H 1024, T 28,
+    hd 128, bf16, not causal) beside their plain version, bound and
+    library call."""
+    gen = torch.Generator().manual_seed(seed + 4)
+    dt = torch.bfloat16
+    bh, t, hd = ML_TRAIN["attention"][0], 28, 128
+    q, k, v, do = (torch.randn(bh, 1, t, hd, generator=gen).to(device, dt)
+                   for _ in range(4))
+    q3, k3, v3, do3 = (a.reshape(bh, t, hd) for a in (q, k, v, do))
+    out, lse = flash.flash_attention_with_lse(q3, k3, v3, False)
+    dd = flash._delta(out, do3).contiguous()
+    args = (q3, k3, v3, out, lse, do3, False)
+    f_err = max_err(out, flash.flash_attention_ref(q3, k3, v3, False))
+    b_errs = rel_errs(flash._flash_backward(*args),
+                      flash.flash_attention_bwd_ref(*args))
+    if f_err > TOL[dt] or max(r for _, r in b_errs) > BWD_TOL[dt]:
+        raise AssertionError(f"flash kernels disagree at the attention "
+                             f"stack's shape: {f_err}, {b_errs}")
+    shape = {"bh": bh, "t": t, "hd": hd, "dtype": "bfloat16",
+             "causal": False}
+    f_bound, f_by = bound_ms(*flash_work(bh, t, t, hd, False, dt), dt)
+    f_lib, _ = library_ms(timer, lambda: F.scaled_dot_product_attention(
+        q, k, v))
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+    b_lib, _ = library_ms(timer, lambda: torch.autograd.grad(
+        sdpa_out, leaves, do, retain_graph=True))
+    b_plain = timer.ms(lambda: flash.flash_attention_bwd_ref(*args), iters=5)
+    rows = {"flash_fwd": {
+        "ms": timer.ms(lambda: flash.flash_attention(q3, k3, v3, False)),
+        "plain_ms": timer.ms(lambda: flash.flash_attention_ref(
+            q3, k3, v3, False), iters=5),
+        "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib,
+        "max_abs_err": f_err, "shape": shape}}
+    for name, fn, idx in (
+            ("dq", lambda: flash._launch_dq(q3, k3, v3, do3, lse, dd, False),
+             (0,)),
+            ("dkv", lambda: flash._launch_dkv(q3, k3, v3, do3, lse, dd,
+                                              False), (1, 2))):
+        bound, by = bound_ms(*flash_bwd_work(name, bh, t, t, hd, False, dt),
+                             dt)
+        rows[f"flash_bwd_{name}"] = {
+            "ms": timer.ms(fn), "plain_ms": b_plain,
+            "plain_covers": "dQ, dK and dV together", "bound_ms": bound,
+            "bound_by": by, "library_ms": b_lib,
+            "library_covers": "SDPA backward: dQ, dK and dV together",
+            "max_abs_err": max(b_errs[i][0] for i in idx),
+            "max_rel_err": max(b_errs[i][1] for i in idx), "shape": shape}
+    return rows
+
+
 def device_profile(fn, iters: int, groups=None) -> dict:
     """Device time by kernel over `iters` calls (torch.profiler, CUDA
     activity only counted from kernel events), and the device's busy
     share of the profiled wall time; `groups` ({label: substring of the
-    kernel name}) adds each group's share and calls. "not measured" when
-    the profiler reports no device time."""
+    kernel name, or a tuple of them}) adds each group's share and calls,
+    a kernel counted in the first group it matches.
+    "not measured" when the profiler reports no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -868,13 +1165,21 @@ def device_profile(fn, iters: int, groups=None) -> dict:
         return {"device_time": "not measured"}
     total_us = sum(us for _, us, _ in rows)
     rows.sort(key=lambda r: -r[1])
-    shares = {label: {"ms_per_call": sum(us for k, us, _ in rows if sub in k)
+    def group_of(key):
+        for label, sub in (groups or {}).items():
+            if any(s in key for s in ((sub,) if isinstance(sub, str)
+                                      else sub)):
+                return label
+        return None
+
+    shares = {label: {"ms_per_call": sum(us for k, us, _ in rows
+                                         if group_of(k) == label)
                       / 1e3 / iters,
-                      "share": sum(us for k, us, _ in rows if sub in k)
-                      / total_us,
-                      "calls_per_call": sum(c for k, _, c in rows if sub in k)
-                      / iters}
-              for label, sub in (groups or {}).items()}
+                      "share": sum(us for k, us, _ in rows
+                                   if group_of(k) == label) / total_us,
+                      "calls_per_call": sum(c for k, _, c in rows
+                                            if group_of(k) == label) / iters}
+              for label in (groups or {})}
     return {"iters": iters, "groups": shares,
             "wall_ms_per_call": wall * 1e3 / iters,
             "device_ms_per_call": total_us / 1e3 / iters,
@@ -947,6 +1252,7 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     record = {}
+    t_start = time.perf_counter()
 
     smi = nvidia_smi()
     cap = torch.cuda.get_device_capability(device)
@@ -1020,16 +1326,46 @@ def main(argv=None) -> int:
     bwd_rows, steps["train"] = train_timing(device, timer, params, batches,
                                             args.seed, worst,
                                             train["launches"])
+    del params, batches
+
+    t0 = time.perf_counter()
+    ml_parity = phase_multilayer_parity(device, args.seed)
+    ml_parity["seconds"] = time.perf_counter() - t0
+    emit({"phase": "multilayer_parity", **ml_parity})
+    record["multilayer_parity"] = ml_parity
+    if not ml_parity["ok"]:
+        raise AssertionError(f"multilayer parity failed: {ml_parity}")
+
+    t0 = time.perf_counter()
+    ml_train = phase_multilayer_train(device, args.seed)
+    ml_train["seconds"] = time.perf_counter() - t0
+    emit({"phase": "multilayer_train", **ml_train})
+    record["multilayer_train"] = ml_train
+    if not ml_train["ok"]:
+        raise AssertionError(f"multilayer training failed: {ml_train}")
+    t0 = time.perf_counter()
+    ml_shape = multilayer_kernel_timing(device, timer, args.seed)
+    ml_train["kernel_timing_seconds"] = time.perf_counter() - t0
+
     k1, k4 = kernels
     k1["launches_by_path"] = {"serve": k1["launches"],
                               "train": train["launches"]["flash_fwd"]}
-    k1["launches"] = sum(k1["launches_by_path"].values())
+    for row in bwd_rows:
+        row["launches_by_path"] = {"train": row["launches"]}
+    for row in (k1, *bwd_rows):
+        row["launches_by_path"]["multilayer"] = \
+            ml_train["launches"][row["name"]]
+        row["launches"] = sum(row["launches_by_path"].values())
+        row["multilayer_shape"] = ml_shape[row["name"]]
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 ml_shape[row["name"]]["max_abs_err"])
     kernels = [k1, *bwd_rows, k4]
     emit({"phase": "main_path_steps", **steps})
     record["main_path_steps"] = steps
     record["kernels_summary"] = kernels
     smi_after = nvidia_smi()
     record["nvidia_smi"] = smi_after
+    record["seconds"] = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

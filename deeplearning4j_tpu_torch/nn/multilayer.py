@@ -1,0 +1,438 @@
+"""The stacked network, the counterpart of the JAX package's
+`nn/multilayer.py`.
+
+Parity: reference core/nn/multilayer/MultiLayerNetwork.java — init with
+nIn/nOut inference (:331-386), `feedForward` (:457), `fit` (:1021/:1136),
+`output`/`predict` (:1197/:1107), `score` (:1265), flat param pack/unpack
+(params :784, setParameters :1420), and the parameter-averaging `merge`
+(:1361).
+
+An `nn.Module` holding its layers in `self.layers` (an `nn.ModuleList`,
+so they are keyed "0", "1", ...), each layer's parameters under the JAX
+package's names. The forward and the loss are also functions of an
+explicit parameter table ({layer index -> {name -> tensor}}), as in the
+JAX package. A train step is autograd of `loss_fn` at the live
+parameters, then the per-layer updater and `p -= update`, in place
+under `torch.no_grad()`; the loss stays a 0-d device tensor, so a step
+reads nothing back to the host. `fit_scan`, one XLA program in the JAX
+package, is a loop of those steps that synchronises with the host once,
+after its last epoch.
+
+The packed parameter vector (`params()` / `set_parameters()`) has the
+JAX package's `ravel_pytree` order: layers by their index as a *string*
+("10" packs before "2"), names sorted within a layer ("W" before "b"),
+each tensor in row-major order. A vector from either package installs
+in the other.
+
+Not in this slice, each raising NotImplementedError that names its
+ROADMAP item: the guardian, autosave and savers (`guardian=`,
+`checkpoint_every=`, `saver=`), the line-search and Hessian-free
+algorithms, `backprop=False` / `finetune`, and layer-wise pretraining.
+The JAX package's telemetry counters, chaos points and compile cache
+are left out.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from deeplearning4j_tpu_torch import default_device
+from deeplearning4j_tpu_torch.config.multi_layer_configuration import (
+    MultiLayerConfiguration)
+from deeplearning4j_tpu_torch.datasets.device_feed import (
+    DEFAULT_MIN_BUCKET, DeviceFeed, bucket_for, feed_mask, pad_rows)
+from deeplearning4j_tpu_torch.nn.api import merge_params
+from deeplearning4j_tpu_torch.nn.layers import make_layer
+from deeplearning4j_tpu_torch.optimize.updater import NetworkGradientUpdater
+from deeplearning4j_tpu_torch.utils.sanitize import validate_batch
+
+_GUARD_ITEMS = ("guardian= (ROADMAP Queue 1 item 5, optimize/guardian.py), "
+                "checkpoint_every= and saver= (item 7, checkpoint/)")
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    return [p for table in tree.values() for p in table.values()]
+
+
+def _refuse_guard(guardian, checkpoint_every, saver) -> None:
+    if guardian is not None or checkpoint_every is not None \
+            or saver is not None:
+        raise NotImplementedError(f"not ported yet: {_GUARD_ITEMS}")
+
+
+class MultiLayerNetwork(nn.Module):
+    def __init__(self, conf: MultiLayerConfiguration, params=None,
+                 device=None):
+        """`params`, if given, is a packed flat vector (the reference's
+        checkpoint constructor, MultiLayerNetwork.java:91). Parameters
+        live on `device` (None = the CUDA device, raising without one).
+        Initial weights come from a CPU generator seeded with the first
+        layer's `seed`, so they are the same on every device; dropout
+        draws from a generator on `device` with the same seed."""
+        super().__init__()
+        self.conf = conf
+        self.device = default_device(device)
+        self._infer_layer_sizes()
+        self.layers = nn.ModuleList([make_layer(c, self.device)
+                                     for c in conf.confs])
+        seed = conf.confs[0].seed if conf.confs else 0
+        self._init_gen = torch.Generator().manual_seed(seed)
+        self._rng = torch.Generator(device=self.device).manual_seed(seed)
+        self._pending_params = params
+        self.init()
+
+    # ------------------------------------------------------------- set-up
+    def _infer_layer_sizes(self) -> None:
+        """nIn/nOut inference from hiddenLayerSizes (reference
+        init:331-386)."""
+        sizes = self.conf.hidden_layer_sizes
+        if not sizes:
+            return
+        confs = self.conf.confs
+        if len(confs) != len(sizes) + 1:
+            raise ValueError(
+                f"hidden_layer_sizes of length {len(sizes)} requires "
+                f"{len(sizes) + 1} layer confs, got {len(confs)}")
+        dims = [confs[0].n_in, *sizes, confs[-1].n_out]
+        for i, c in enumerate(confs):
+            c.n_in, c.n_out = dims[i], dims[i + 1]
+
+    def init(self) -> None:
+        """Initialise the parameters (reference MultiLayerNetwork.init
+        :331): each layer in order draws from the init generator; a
+        pending packed vector is then installed."""
+        for layer in self.layers:
+            layer.init_params(self._init_gen)
+        self._updater = None
+        self._updater_state = None
+        if self._pending_params is not None:
+            self.set_parameters(self._pending_params)
+            self._pending_params = None
+
+    def _tensor(self, a) -> torch.Tensor:
+        """An input on this network's device; float64 narrows to float32
+        (as jnp.asarray does)."""
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.require(a, requirements=["C", "W"]))
+        if t.dtype == torch.float64:
+            t = t.float()
+        return t.to(self.device)
+
+    def _validate(self, x, labels=None, context="fit") -> None:
+        has_pp = self.conf.input_preprocessors.get(0) is not None
+        validate_batch(x, labels,
+                       n_in=None if has_pp else self.layers[0].conf.n_in,
+                       n_out=(self.layers[-1].conf.n_out
+                              if labels is not None else None),
+                       context=context)
+
+    # ------------------------------------------------------------ forward
+    def _layer_input(self, i: int, x, rng=None):
+        pp = self.conf.input_preprocessors.get(i)
+        return pp(x, rng=rng) if pp is not None else x
+
+    def _layer_output(self, i: int, act, rng=None):
+        pp = self.conf.output_preprocessors.get(i)
+        return pp(act, rng=rng) if pp is not None else act
+
+    def feed_forward_fn(self, params, x, rng: Optional[torch.Generator] = None,
+                        training: bool = False) -> List[torch.Tensor]:
+        """Feed-forward returning [input, act_0, ..., act_L] (reference
+        feedForward :457), at the given parameter table."""
+        acts = [x]
+        cur = x
+        for i, layer in enumerate(self.layers):
+            cur = self._layer_input(i, cur, rng=rng)
+            cur = layer.activate(params[str(i)], cur, rng=rng,
+                                 training=training)
+            cur = self._layer_output(i, cur)
+            acts.append(cur)
+        return acts
+
+    def loss_fn(self, params, x, labels, rng: Optional[torch.Generator] = None,
+                training: bool = False, weights=None):
+        """Feed-forward into the output layer's configured loss (reference
+        score :1265), plus each layer's L2 over its non-bias parameters
+        (0.5 * l2 * sum(w^2), when `use_regularization`). `weights` (per
+        example) masks the device feed's padding rows out of the loss."""
+        n = len(self.layers)
+        cur = x
+        for i, layer in enumerate(self.layers[:-1]):
+            cur = self._layer_input(i, cur, rng=rng)
+            cur = layer.activate(params[str(i)], cur, rng=rng,
+                                 training=training)
+            cur = self._layer_output(i, cur)
+        cur = self._layer_input(n - 1, cur, rng=rng)
+        score = self.layers[-1].loss(params[str(n - 1)], cur, labels,
+                                     rng=rng, training=training,
+                                     weights=weights)
+        for i, layer in enumerate(self.layers):
+            c = layer.conf
+            if c.use_regularization and c.l2 > 0:
+                for name, value in params[str(i)].items():
+                    if not layer.is_bias(name):
+                        score = score + 0.5 * c.l2 * torch.square(value).sum()
+        return score
+
+    # -------------------------------------------------------------- train
+    def pretrain(self, data) -> None:
+        raise NotImplementedError(
+            "layer-wise pretraining is not ported yet (ROADMAP Queue 1 "
+            "item 8, models/pretrain.py)")
+
+    def finetune(self, x, labels=None) -> None:
+        raise NotImplementedError(
+            "finetune / backprop=False is not ported yet (ROADMAP Queue 1 "
+            "item 5, optimize/solvers.py)")
+
+    def fit(self, x, labels=None, epochs: int = 1,
+            device_feed: Optional[bool] = None, guardian=None,
+            checkpoint_every: Optional[int] = None, saver=None) -> None:
+        """Train on (x, labels) arrays or a DataSetIterator (reference
+        fit(DataSet) :1172 / fit(DataSetIterator) :1021), `epochs` passes.
+
+        An iterator goes through a `DeviceFeed` by default: ragged batches
+        are padded to the bucket ladder with their real count masked into
+        the loss and the updater's ÷batchSize, and the next batches'
+        copies run ahead of the step. `device_feed=False` copies each
+        batch as it comes; a DeviceFeed passed as `x` is used as given."""
+        _refuse_guard(guardian, checkpoint_every, saver)
+        if labels is None:  # iterator protocol
+            if isinstance(x, DeviceFeed):
+                feed = x
+            elif device_feed is False:
+                feed = None
+            else:
+                feed = DeviceFeed(x, device=self.device)
+            for _ in range(epochs):
+                if feed is not None:
+                    for fb in feed:
+                        self._fit_supervised(fb.features, fb.labels,
+                                             n_valid=fb.n_valid)
+                else:
+                    x.reset()
+                    for ds in x:
+                        self._fit_supervised(self._tensor(ds.features),
+                                             self._tensor(ds.labels))
+            return
+        x, labels = self._tensor(x), self._tensor(labels)
+        self._validate(x, labels, "fit")
+        for _ in range(epochs):
+            self._fit_supervised(x, labels)
+
+    def _fit_supervised(self, x, labels, n_valid=None) -> None:
+        if not self.conf.backprop:
+            return self.finetune(x, labels)
+        return self._backprop_fit(x, labels, n_valid)
+
+    def _backprop_fit(self, x, labels, n_valid=None) -> None:
+        """`num_iterations` train steps on one batch (standard minibatch
+        SGD when it is 1), the updater state carried across batches."""
+        conf0 = self.layers[-1].conf
+        algo = conf0.optimization_algo.lower()
+        if algo != "iteration_gradient_descent":
+            raise NotImplementedError(
+                f"optimization_algo {algo!r} is not ported yet (ROADMAP "
+                f"Queue 1 item 5: the line-search and Hessian-free solvers); "
+                f"use iteration_gradient_descent")
+        for _ in range(conf0.num_iterations):
+            self._train_step(x, labels, n_valid)
+
+    def _get_updater(self) -> NetworkGradientUpdater:
+        if self._updater is None:
+            self._updater = NetworkGradientUpdater.for_network(self)
+        return self._updater
+
+    def _train_step(self, x, labels, n_valid=None) -> torch.Tensor:
+        """One step: autograd of loss_fn at the live parameters, the
+        per-layer updater, p -= update in place. The score comes back as
+        a 0-d device tensor; nothing is read back to the host."""
+        weights, count = feed_mask(x.shape[0], n_valid, self.device)
+        params = self.param_table
+        updater = self._get_updater()
+        if self._updater_state is None:
+            self._updater_state = updater.init(params)
+        leaves = _leaves(params)
+        with torch.enable_grad():
+            score = self.loss_fn(params, x, labels, rng=self._rng,
+                                 training=True, weights=weights)
+            flat = iter(torch.autograd.grad(score, leaves))
+        grads = {k: {name: next(flat) for name in table}
+                 for k, table in params.items()}
+        with torch.no_grad():
+            updates, self._updater_state = updater.update(
+                grads, self._updater_state, params, count)
+            for p, u in zip(leaves, _leaves(updates)):
+                p.sub_(u)
+        return score.detach()
+
+    def fit_scan(self, x, labels, batch_size: int, epochs: int = 1,
+                 pad_partial: bool = False, guardian=None,
+                 checkpoint_every: Optional[int] = None, saver=None,
+                 sync: bool = True):
+        """Whole-epoch training: `epochs` passes over x cut into
+        minibatches of `batch_size`, one train step a minibatch, the
+        updater state carried through. Returns the last batch's score: a
+        float (`sync=True`, the one host sync of the call), or the 0-d
+        device tensor (`sync=False`, no host sync at all).
+
+        When the example count is not a multiple of batch_size the tail
+        is dropped, unless `pad_partial=True`, which zero-pads the last
+        minibatch and masks its padding rows out of the loss and the
+        updater's ÷batchSize (the device feed's masking)."""
+        _refuse_guard(guardian, checkpoint_every, saver)
+        conf0 = self.layers[-1].conf
+        if conf0.optimization_algo.lower() != "iteration_gradient_descent":
+            raise ValueError("fit_scan supports iteration_gradient_descent")
+        if int(epochs) < 1:
+            raise ValueError(f"epochs must be >= 1, got {epochs}")
+        x, labels = self._tensor(x), self._tensor(labels)
+        self._validate(x, labels, "fit_scan")
+        tail = x.shape[0] % batch_size
+        if pad_partial and tail:
+            pad = batch_size - tail
+            x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+            labels = torch.cat([labels,
+                                labels.new_zeros((pad, *labels.shape[1:]))])
+        n = x.shape[0] // batch_size * batch_size
+        if n == 0:
+            raise ValueError(
+                f"batch_size {batch_size} exceeds {x.shape[0]} examples")
+        n_batches = n // batch_size
+        xb = x[:n].reshape(n_batches, batch_size, *x.shape[1:])
+        yb = labels[:n].reshape(n_batches, batch_size, *labels.shape[1:])
+        counts = None
+        if pad_partial and tail:
+            counts = torch.full((n_batches,), batch_size, dtype=torch.int32,
+                                device=self.device)
+            counts[-1] = tail
+        score = None
+        for _ in range(int(epochs)):
+            for i in range(n_batches):
+                score = self._train_step(
+                    xb[i], yb[i], None if counts is None else counts[i])
+        return float(score) if sync else score
+
+    # ----------------------------------------------------------- inference
+    def feed_forward(self, x) -> List[torch.Tensor]:
+        x = self._tensor(x)
+        self._validate(x, context="feed_forward")
+        with torch.no_grad():
+            return self.feed_forward_fn(self.param_table, x)
+
+    def output(self, x, bucketed: bool = True) -> torch.Tensor:
+        """Output-layer activations (reference output :1197), on this
+        network's device.
+
+        `bucketed=True` (the default) zero-pads the batch up to the pow2
+        bucket ladder and slices the padding back off (inference is per
+        row), so a ragged stream meets a few batch shapes, as in the JAX
+        package; `bucketed=False` runs the batch as it is."""
+        if not bucketed:
+            return self.feed_forward(x)[-1]
+        x = self._tensor(x)
+        self._validate(x, context="output")
+        n = x.shape[0]
+        b = bucket_for(n, (DEFAULT_MIN_BUCKET,))
+        with torch.no_grad():
+            return self.feed_forward_fn(self.param_table,
+                                        pad_rows(x, b))[-1][:n]
+
+    def predict(self, x) -> np.ndarray:
+        """Class predictions (reference predict :1107), on the host."""
+        return self.output(x).argmax(dim=-1).cpu().numpy()
+
+    def score(self, x, labels) -> float:
+        """Mean loss on (x, labels) (reference score :1265)."""
+        with torch.no_grad():
+            return float(self.loss_fn(self.param_table, self._tensor(x),
+                                      self._tensor(labels)))
+
+    # ------------------------------------------------- params as flat vector
+    @property
+    def param_table(self) -> Dict[str, Dict[str, nn.Parameter]]:
+        """The live parameters, {layer index -> {name -> tensor}}
+        (reference paramTable). Assigning a table of the same names and
+        shapes (tensors or numpy arrays) copies it in."""
+        return {str(i): layer.param_dict()
+                for i, layer in enumerate(self.layers)}
+
+    @param_table.setter
+    def param_table(self, table) -> None:
+        live = self.param_table
+        if set(table) != set(live):
+            raise ValueError(f"param table has layers {sorted(table)}, "
+                             f"the network {sorted(live)}")
+        with torch.no_grad():
+            for k, names in live.items():
+                if set(table[k]) != set(names):
+                    raise ValueError(
+                        f"layer {k} has parameters {sorted(names)}, the "
+                        f"table {sorted(table[k])}")
+                for name, p in names.items():
+                    v = table[k][name]
+                    v = v if isinstance(v, torch.Tensor) else \
+                        torch.tensor(np.asarray(v))
+                    if tuple(v.shape) != tuple(p.shape):
+                        raise ValueError(
+                            f"{k}/{name}: shape {tuple(v.shape)}, the "
+                            f"network's {tuple(p.shape)}")
+                    p.copy_(v)
+
+    def _packed_order(self):
+        """(layer key, name, parameter) in ravel_pytree's order: sorted
+        string keys at both levels."""
+        table = self.param_table
+        return [(k, name, table[k][name]) for k in sorted(table)
+                for name in sorted(table[k])]
+
+    def params(self) -> torch.Tensor:
+        """Packed flat parameter vector (reference params :784 / pack
+        :831), a new tensor on this network's device."""
+        return torch.cat([p.detach().reshape(-1)
+                          for _, _, p in self._packed_order()])
+
+    def set_parameters(self, flat) -> None:
+        """Install a packed vector (reference setParameters :1420 /
+        unPack :920), a tensor or numpy array."""
+        flat = flat if isinstance(flat, torch.Tensor) else \
+            torch.tensor(np.asarray(flat))
+        flat = flat.reshape(-1).to(self.device)
+        if flat.numel() != self.num_params():
+            raise ValueError(f"packed vector has {flat.numel()} values, the "
+                             f"network {self.num_params()} parameters")
+        offset = 0
+        with torch.no_grad():
+            for _, _, p in self._packed_order():
+                p.copy_(flat[offset:offset + p.numel()].reshape(p.shape))
+                offset += p.numel()
+
+    def num_params(self) -> int:
+        return sum(p.numel() for _, _, p in self._packed_order())
+
+    def merge(self, other: "MultiLayerNetwork", n: int) -> None:
+        """Parameter averaging: this += (other - this) / n (reference
+        merge :1361)."""
+        with torch.no_grad():
+            other_table = {k: {name: p.to(self.device)
+                               for name, p in t.items()}
+                           for k, t in other.param_table.items()}
+            self.param_table = merge_params(self.param_table, other_table, n)
+
+    # -------------------------------------------------------- serialization
+    def to_json(self) -> str:
+        return self.conf.to_json()
+
+    @classmethod
+    def from_config_json(cls, s: str, params=None, device=None
+                         ) -> "MultiLayerNetwork":
+        return cls(MultiLayerConfiguration.from_json(s), params=params,
+                   device=device)
+
+    def clone(self) -> "MultiLayerNetwork":
+        return MultiLayerNetwork.from_config_json(
+            self.to_json(), params=self.params(), device=self.device)

@@ -4,10 +4,12 @@ Both packages keep transformer parameters as the same nested structure of
 dicts and lists with the same keys, so the transfer is a walk over that
 structure: `params_from_jax` turns a tree of numpy arrays (e.g.
 `jax.tree_util.tree_map(np.asarray, params)`) into torch tensors on a
-device, `params_to_numpy` goes back. bfloat16 arrays (numpy's
-`ml_dtypes` bfloat16, which JAX hands out) cross bit for bit; on the way
-back a bfloat16 tensor becomes float32 numpy, since plain numpy has no
-bfloat16.
+device, `params_to_numpy` goes back. A MultiLayerNetwork's table
+({layer index -> {name -> array}}) crosses with
+`multilayer_params_from_jax` / `multilayer_params_to_numpy`. bfloat16
+arrays (numpy's `ml_dtypes` bfloat16, which JAX hands out) cross bit for
+bit; on the way back a bfloat16 tensor becomes float32 numpy, since
+plain numpy has no bfloat16.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 from deeplearning4j_tpu_torch import default_device
 
 __all__ = ["params_from_jax", "params_to_numpy", "params_to_device",
-           "tree_map"]
+           "tree_map", "multilayer_params_from_jax",
+           "multilayer_params_to_numpy"]
 
 
 def tree_map(fn, tree):
@@ -69,3 +72,28 @@ def params_to_device(params, device):
     """The same tree with every tensor on `device` (no copy where a leaf
     is already there)."""
     return tree_map(lambda t: t.to(device), params)
+
+
+def _check_table(table) -> None:
+    if not isinstance(table, dict) or not all(
+            isinstance(k, str) and k.isdigit() and isinstance(t, dict)
+            for k, t in table.items()):
+        raise ValueError("a MultiLayerNetwork table is {layer index as a "
+                         "string -> {parameter name -> array}}")
+
+
+def multilayer_params_from_jax(tree, device=None):
+    """A JAX MultiLayerNetwork's table as numpy (e.g.
+    `jax.tree_util.tree_map(np.asarray, net._params)`) -> the same table
+    of torch tensors on `device` (None = the CUDA device), ready for the
+    port's `net.param_table = ...`."""
+    _check_table(tree)
+    return params_from_jax(tree, device=device)
+
+
+def multilayer_params_to_numpy(table):
+    """The port's `net.param_table` -> the same table of numpy arrays,
+    ready for the JAX package's
+    `net._params = jax.tree_util.tree_map(jnp.asarray, table)`."""
+    _check_table(table)
+    return params_to_numpy(table)
