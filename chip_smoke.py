@@ -85,15 +85,44 @@ prints no result):
                   and on the attention stack K1, K2 and K3 each launched
                   once a step (K1 once more for output()). One step of
                   each model profiled.
+10. solver_parity — the batch solvers (optimize/): each of the five
+                  optimizers, 5 iterations over a 20-32-16-5 MLP's loss
+                  (float32, batch 64; Hessian-free from damping 10),
+                  card against the port's CPU run from the same params
+                  and batch (params within 1e-4); on the card the
+                  sync-free path and the listener path give identical
+                  params, and one optimize() of each runs under
+                  set_sync_debug_mode("error"). Then Hessian-free's
+                  double backward through the bf16 product on a bf16
+                  conf: the Hessian-vector product card vs CPU within
+                  3e-2 of its largest value, the final score within 2e-2
+                  relative. Limits in SOLVER_PARITY_TOL.
+11. dbn          — BASELINE config 4 at full width (bench.py:241-256):
+                  784-1024-512-10 DBN, CD-1 pretraining of both RBMs then
+                  5 backprop steps, bf16 products, batch 2048 of
+                  synthetic_mnist. One warm-up fit, 12 timed fits
+                  (samples/s as bench.py counts: fits x 2048 x 5 x 3 /
+                  window), one fit under set_sync_debug_mode("error"),
+                  RBM reconstruction errors and the score before and
+                  after, Evaluation on 2048 held-out rows, one fit
+                  profiled; the card's name and power limit beside it.
+                  Every value finite and the score lower at the end.
+12. solver_attention — the attention stack of phase 9 trained by
+                  conjugate_gradient and by lbfgs, two fit() calls of 5
+                  iterations each: K2 and K3 launched once per gradient,
+                  K1 once per gradient (with its lse) plus once per
+                  line-search trial (all 5 run on the sync-free path);
+                  the loss lower at the end; ms per iteration.
 
 Then, at each path's shapes: each kernel's time beside its plain
 version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3;
 the median of 3 separate batches, all three recorded) and its bound, one
 whole prefill, decode step and training step, each profiled; K1, K2 and
 K3 also at the attention stack's shape (B*H 1024, T 28, hd 128, not
-causal). The last
-lines are the card as nvidia-smi gives it, the kernels' JSON line (with
-each kernel's design), and {"ok": true, "device": {...}}.
+causal). The kernels' launches are counted per path (serve, train,
+multilayer, solver). The last lines are the card as nvidia-smi gives
+it, the kernels' JSON line (with each kernel's design), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -126,6 +155,8 @@ from deeplearning4j_tpu_torch.nn.preprocessors import (
     ConvolutionInputPreProcessor, ConvolutionPostProcessor,
     ReshapePreProcessor)
 from deeplearning4j_tpu_torch.ops.products import bf16_product_route
+from deeplearning4j_tpu_torch.optimize import CollectScoresListener, Solver
+from deeplearning4j_tpu_torch.optimize.solvers import ravel_table
 from deeplearning4j_tpu_torch.serving import paged_kv
 from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
 from deeplearning4j_tpu_torch.weights import params_to_device
@@ -1138,6 +1169,281 @@ def multilayer_kernel_timing(device, timer, seed):
     return rows
 
 
+# --------------------------------------------------------- batch solvers
+SOLVER_ALGOS = ("iteration_gradient_descent", "gradient_descent",
+                "conjugate_gradient", "lbfgs", "hessian_free")
+SOLVER_ITERS = 5
+SOLVER_PARITY_TOL = {"params": 1e-4, "bf16_hvp_rel": 3e-2,
+                     "bf16_score_rel": 2e-2}
+#: Hessian-free's starting damping in the parity runs: at the default 1
+#: the test MLP's damped Hessian is indefinite, and CG's step then
+#: multiplies float32 rounding differences by ~1e4 (tests/
+#: test_torch_optimize.py's module docstring)
+HF_PARITY_LAMBDA = 10.0
+
+
+def solver_mlp_conf(algo, compute_dtype="float32"):
+    """The solver parity MLP at test width: 20-32-16-5, tanh, softmax +
+    mcxent, SGD + momentum (for IGD), SOLVER_ITERS iterations."""
+    return (NeuralNetConfiguration.builder()
+            .lr(0.1).n_in(20).activation_function("tanh")
+            .optimization_algo(algo).num_iterations(SOLVER_ITERS)
+            .use_adagrad(False).momentum(0.5)
+            .compute_dtype(compute_dtype)
+            .list(3).hidden_layer_sizes([32, 16])
+            .override(2, layer="output", loss_function="mcxent",
+                      activation_function="softmax", n_out=5)
+            .pretrain(False).build())
+
+
+def net_solver(net, algo_kw=None, listeners_=None):
+    """A Solver over `net`'s whole loss as a function of the packed
+    vector, and the packed start point."""
+    x0, unravel = ravel_table(net.param_table)
+
+    def loss(vec, bx, by):
+        return net.loss_fn(unravel(vec), bx, by)
+
+    return Solver(net.layers[-1].conf, loss, listeners=listeners_,
+                  terminations=[], **(algo_kw or {})), x0, loss
+
+
+def phase_solver_parity(device, seed):
+    """Each optimizer SOLVER_ITERS iterations on the card against the
+    port's CPU run from the same params and batch (float32); the two
+    optimize() paths on the card (identical params); one optimize() of
+    each under set_sync_debug_mode("error"); and Hessian-free's double
+    backward through the bf16 product on the card vs the CPU."""
+    rng = np.random.default_rng(seed + 6)
+    xb = rng.uniform(size=(64, 20)).astype(np.float32)
+    yb = np.eye(5, dtype=np.float32)[rng.integers(0, 5, 64)]
+    out = {}
+    for algo in SOLVER_ALGOS:
+        kw = ({"initial_lambda": HF_PARITY_LAMBDA}
+              if algo == "hessian_free" else {})
+        cpu = MultiLayerNetwork(solver_mlp_conf(algo), device="cpu")
+        card = MultiLayerNetwork.from_config_json(
+            cpu.to_json(), params=cpu.params(), device=device)
+        data_cpu = (torch.from_numpy(xb), torch.from_numpy(yb))
+        data = tuple(a.to(device) for a in data_cpu)
+        solver, x0, _ = net_solver(card, kw)
+        cpu_solver, cx0, _ = net_solver(cpu, kw)
+        got, score = solver.optimize(x0, *data, sync=False)
+        ref, ref_score = cpu_solver.optimize(cx0, *data_cpu)
+        collect = CollectScoresListener()
+        eager_solver, _, _ = net_solver(card, kw, [collect])
+        eager, eager_score = eager_solver.optimize(x0, *data)
+        sync_solver, _, _ = net_solver(card, kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            synced, _ = sync_solver.optimize(x0, *data, sync=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        diff = max_err(got.cpu(), ref)
+        paths_equal = bool(torch.equal(got, eager)
+                           and torch.equal(got, synced))
+        out[algo] = {"params_max_abs_diff": diff,
+                     "score_card": float(score), "score_cpu": ref_score,
+                     "score_start": float(net_solver(cpu)[2](
+                         cx0, *data_cpu)),
+                     "sync_free_equals_listener_path": paths_equal,
+                     "listener_iterations": len(collect.scores),
+                     "eager_score": eager_score,
+                     "no_host_sync_in_optimize": True,
+                     "ok": (diff <= SOLVER_PARITY_TOL["params"]
+                            and paths_equal
+                            and len(collect.scores) == SOLVER_ITERS)}
+        out[algo]["ok"] = out[algo]["ok"] and \
+            out[algo]["score_card"] < out[algo]["score_start"]
+    # Hessian-free through matmul_f32's bf16 product: double backward
+    # through _Bf16ProductF32 on the card (torch.mm out_dtype), a
+    # float32 product of the bf16 values on the CPU
+    cpu = MultiLayerNetwork(solver_mlp_conf("hessian_free", "bfloat16"),
+                            device="cpu")
+    card = MultiLayerNetwork.from_config_json(
+        cpu.to_json(), params=cpu.params(), device=device)
+    data_cpu = (torch.from_numpy(xb), torch.from_numpy(yb))
+    data = tuple(a.to(device) for a in data_cpu)
+    v = torch.from_numpy(rng.normal(size=cpu.num_params()).astype(
+        np.float32))
+    hvps = []
+    for net, d, vv in ((card, data, v.to(device)), (cpu, data_cpu, v)):
+        _, x0, loss = net_solver(net)
+        xv = x0.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(loss(xv, *d), xv, create_graph=True)
+        (hv,) = torch.autograd.grad(g, xv, grad_outputs=vv)
+        hvps.append(hv.detach().cpu())
+    hvp_rel = max_err(*hvps) / float(hvps[1].abs().max())
+    kw = {"initial_lambda": HF_PARITY_LAMBDA}
+    solver, x0, loss = net_solver(card, kw)
+    cpu_solver, cx0, cpu_loss = net_solver(cpu, kw)
+    _, score = solver.optimize(x0, *data)
+    _, ref_score = cpu_solver.optimize(cx0, *data_cpu)
+    start = float(cpu_loss(cx0, *data_cpu))
+    score_rel = abs(score - ref_score) / abs(ref_score)
+    bf16 = {"bf16_product": bf16_product_route(device),
+            "hvp_max_rel_diff": hvp_rel, "score_start": start,
+            "score_card": score, "score_cpu": ref_score,
+            "score_rel_diff": score_rel,
+            "ok": (hvp_rel <= SOLVER_PARITY_TOL["bf16_hvp_rel"]
+                   and score_rel <= SOLVER_PARITY_TOL["bf16_score_rel"]
+                   and np.isfinite(score) and score < start)}
+    return {"dtype": "float32", "iterations": SOLVER_ITERS, "batch": 64,
+            "hf_initial_lambda": HF_PARITY_LAMBDA, "optimizers": out,
+            "hessian_free_bf16": bf16, "tolerances": SOLVER_PARITY_TOL,
+            "ok": all(m["ok"] for m in out.values()) and bf16["ok"]}
+
+
+# -------------------------------------------------------------------- DBN
+DBN_BATCH = 2048
+DBN_ITERS = 5
+DBN_FITS = 12
+DBN_GROUPS = {"cublas_gemm": ("nvjet", "gemm", "Kernel2"),
+              "casts_copies": "copy_kern",
+              "foreach_updater": "multi_tensor_apply",
+              "rng": ("bernoulli", "philox", "distribution"),
+              "elementwise": "elementwise_kernel", "reduce": "reduce_kernel"}
+
+
+def dbn_conf():
+    """BASELINE config 4 (bench.py:241-256): 784-1024-512-10, sigmoid,
+    RBM CD-1 on layers 0 and 1, softmax + mcxent, iteration gradient
+    descent x 5, lr 0.05, bf16 products, batch 2048, pretraining on."""
+    return (NeuralNetConfiguration.builder()
+            .lr(0.05).n_in(784).activation_function("sigmoid")
+            .optimization_algo("iteration_gradient_descent")
+            .num_iterations(DBN_ITERS).batch_size(DBN_BATCH)
+            .compute_dtype("bfloat16")
+            .list(3).hidden_layer_sizes([1024, 512])
+            .override(0, layer="rbm", k=1)
+            .override(1, layer="rbm", k=1)
+            .override(2, layer="output", loss_function="mcxent",
+                      activation_function="softmax", n_out=10)
+            .pretrain(True).build())
+
+
+def dbn_recon_errors(net, x):
+    """Mean squared reconstruction error of each RBM on its input."""
+    errs = []
+    with torch.no_grad():
+        cur = x
+        for layer in net.layers[:-1]:
+            p = layer.param_dict()
+            errs.append(float(torch.square(layer.reconstruct(p, cur)
+                                           - cur).mean()))
+            cur = layer.activate(p, cur)
+    return errs
+
+
+def phase_dbn(device, seed):
+    """The DBN's main path: fit() = layer-wise CD-1 pretraining of both
+    RBMs (each a sync-free Solver of 5 iterations) then 5 backprop steps
+    of the whole stack; one warm-up fit, DBN_FITS timed fits (samples/s
+    counted as bench.py counts them: fits x batch x 5 x 3 / window), one
+    fit under set_sync_debug_mode("error"), then Evaluation on 2048
+    held-out rows and one fit profiled."""
+    x_np, y_np = synthetic_mnist(2 * DBN_BATCH, seed=seed)
+    x = torch.from_numpy(x_np[:DBN_BATCH]).to(device)
+    y = torch.from_numpy(y_np[:DBN_BATCH]).to(device)
+    net = MultiLayerNetwork(dbn_conf(), device=device)
+    recon_before = dbn_recon_errors(net, x)
+    score_before = net.score(x, y)
+    t0 = time.perf_counter()
+    net.fit(x, y)  # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    score_first = net.score(x, y)
+    t0 = time.perf_counter()
+    for _ in range(DBN_FITS):
+        net.fit(x, y)
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    samples = DBN_FITS * DBN_BATCH * DBN_ITERS * 3
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        net.fit(x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    score_last = net.score(x, y)
+    recon_after = dbn_recon_errors(net, x)
+    ev = Evaluation()
+    ev.eval(y_np[DBN_BATCH:], net.output(x_np[DBN_BATCH:]))
+    profile = device_profile(lambda: net.fit(x, y), iters=2,
+                             groups=DBN_GROUPS)
+    scores = [score_before, score_first, score_last]
+    ok = (all(np.isfinite(scores + recon_before + recon_after))
+          and score_last < score_before)
+    return {"card": nvidia_smi(), "params": net.num_params(),
+            "batch": DBN_BATCH, "iterations": DBN_ITERS,
+            "compute_dtype": "bfloat16", "fits_timed": DBN_FITS,
+            "warmup_fit_s": warmup_s, "window_s": window,
+            "ms_per_fit": window * 1e3 / DBN_FITS,
+            "samples_per_s": samples / window,
+            "samples_counted_as": "fits x batch x iterations x 3 phases",
+            "recon_error_before": recon_before,
+            "recon_error_after": recon_after,
+            "finetune_score": {"before": score_before,
+                               "after_first_fit": score_first,
+                               "last": score_last},
+            "fits": DBN_FITS + 2, "eval_rows": DBN_BATCH,
+            "accuracy": ev.accuracy(), "no_host_sync_in_fit": True,
+            "fit_profile": profile, "ok": ok}
+
+
+# ------------------------------------------------ solvers over attention
+def phase_solver_attention(device, seed):
+    """The attention stack (BASELINE widths, bf16 products, batch 1024)
+    trained by conjugate_gradient and by lbfgs, two fit() calls of
+    SOLVER_ITERS iterations each (the sync-free solver path; the second
+    timed): per iteration one gradient (K1 with its lse, then K2 and K3)
+    and num_line_search_iterations trials (K1 without lse), all run."""
+    batch = ML_TRAIN["attention"][0]
+    x_np, y_np = synthetic_mnist(batch, seed=seed + 7)
+    x = torch.from_numpy(x_np).to(device)
+    y = torch.from_numpy(y_np).to(device)
+    out, total = {}, {k: 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")}
+    for algo in ("conjugate_gradient", "lbfgs"):
+        conf = attention_conf("bfloat16")
+        for c in conf.confs:
+            c.optimization_algo = algo
+            c.num_iterations = SOLVER_ITERS
+        net = MultiLayerNetwork(conf, device=device)
+        trials = conf.confs[-1].num_line_search_iterations
+        before = net.score(x, y)
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        net.fit(x, y)  # the first fit also builds the solver
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        net.fit(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        launches = flash_counts()
+        ms = start.elapsed_time(end)
+        after = net.score(x, y)
+        gradients = 2 * SOLVER_ITERS
+        want = {"flash_fwd": gradients * (1 + trials),
+                "flash_bwd_dq": gradients, "flash_bwd_dkv": gradients}
+        for k in total:
+            total[k] += launches[k]
+        out[algo] = {"fits": 2, "iterations_per_fit": SOLVER_ITERS,
+                     "line_search_trials": trials,
+                     "loss_first": before, "loss_last": after,
+                     "ms_per_iteration": ms / SOLVER_ITERS,
+                     "loss_evaluations_per_iteration": 1 + trials,
+                     "launches": launches, "launches_expected": want,
+                     "ok": (launches == want and np.isfinite(after)
+                            and after < before)}
+    return {"batch": batch, "compute_dtype": "bfloat16", "models": out,
+            "launches": total,
+            "ok": all(m["ok"] for m in out.values())}
+
+
 def device_profile(fn, iters: int, groups=None) -> dict:
     """Device time by kernel over `iters` calls (torch.profiler, CUDA
     activity only counted from kernel events), and the device's busy
@@ -1347,6 +1653,17 @@ def main(argv=None) -> int:
     ml_shape = multilayer_kernel_timing(device, timer, args.seed)
     ml_train["kernel_timing_seconds"] = time.perf_counter() - t0
 
+    for name, fn in (("solver_parity", phase_solver_parity),
+                     ("dbn", phase_dbn),
+                     ("solver_attention", phase_solver_attention)):
+        t0 = time.perf_counter()
+        res = fn(device, args.seed)
+        res["seconds"] = time.perf_counter() - t0
+        emit({"phase": name, **res})
+        record[name] = res
+        if not res["ok"]:
+            raise AssertionError(f"{name} failed: {res}")
+
     k1, k4 = kernels
     k1["launches_by_path"] = {"serve": k1["launches"],
                               "train": train["launches"]["flash_fwd"]}
@@ -1355,6 +1672,8 @@ def main(argv=None) -> int:
     for row in (k1, *bwd_rows):
         row["launches_by_path"]["multilayer"] = \
             ml_train["launches"][row["name"]]
+        row["launches_by_path"]["solver"] = \
+            record["solver_attention"]["launches"][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
         row["multilayer_shape"] = ml_shape[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"],

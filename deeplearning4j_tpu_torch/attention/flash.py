@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from deeplearning4j_tpu_torch import _build
 
@@ -277,8 +276,16 @@ class _FlashAttention(torch.autograd.Function):
         return out, lse
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g_out, g_lse):
+        if torch.is_grad_enabled():
+            # asked for a graph of the gradient (create_graph=True, e.g.
+            # a Hessian-vector product): the kernels' backward is not
+            # differentiable, and a product that silently left this part
+            # out would be wrong
+            raise RuntimeError(
+                "flash attention is differentiable once: its backward "
+                "(K2/K3) has no derivative, so no second derivative "
+                "(create_graph=True) can pass through it")
         q, k, v, out, lse = ctx.saved_tensors
         g_out = (torch.zeros_like(out) if g_out is None
                  else g_out.contiguous())

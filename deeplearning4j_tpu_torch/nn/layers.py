@@ -35,10 +35,7 @@ LAYER_REGISTRY: Dict[str, Type["BaseLayer"]] = {}
 
 #: layer types of the JAX package that this port has not taken yet
 NOT_PORTED = {
-    "rbm": "ROADMAP Queue 1 item 8 (models/pretrain.py)",
-    "autoencoder": "ROADMAP Queue 1 item 8 (models/pretrain.py)",
-    "recursive_autoencoder": "ROADMAP Queue 1 item 8 (models/pretrain.py)",
-    "lstm": "ROADMAP Queue 1 item 8 (models/lstm.py)",
+    "lstm": "ROADMAP Queue 1 item 8b (models/lstm.py)",
 }
 
 

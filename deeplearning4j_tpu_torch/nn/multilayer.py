@@ -24,17 +24,27 @@ JAX package's `ravel_pytree` order: layers by their index as a *string*
 each tensor in row-major order. A vector from either package installs
 in the other.
 
+The batch solvers (`optimize/solver.py`) drive the other paths, as in
+the JAX package: the line-search and Hessian-free algorithms of a
+backprop fit (one `Solver` over the whole packed vector, the device
+feed's row mask as an extra datum), `finetune` / `backprop=False` (the
+output layer's solver over chunked frozen features) and layer-wise
+`pretrain` (one cached `Solver` per RBM / autoencoder layer), which
+`fit` runs first when `conf.pretrain` is set. Listeners
+(`set_listeners`) are called after each `fit` batch and `fit_scan`
+call, and by the solvers each iteration; calling one reads the score
+back to the host.
+
 Not in this slice, each raising NotImplementedError that names its
 ROADMAP item: the guardian, autosave and savers (`guardian=`,
-`checkpoint_every=`, `saver=`), the line-search and Hessian-free
-algorithms, `backprop=False` / `finetune`, and layer-wise pretraining.
-The JAX package's telemetry counters, chaos points and compile cache
-are left out.
+`checkpoint_every=`, `saver=`). The JAX package's telemetry counters,
+chaos points and compile cache are left out.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import logging
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,11 +57,15 @@ from deeplearning4j_tpu_torch.datasets.device_feed import (
     DEFAULT_MIN_BUCKET, DeviceFeed, bucket_for, feed_mask, pad_rows)
 from deeplearning4j_tpu_torch.nn.api import merge_params
 from deeplearning4j_tpu_torch.nn.layers import make_layer
+from deeplearning4j_tpu_torch.optimize.solver import Solver
+from deeplearning4j_tpu_torch.optimize.solvers import ravel_table
 from deeplearning4j_tpu_torch.optimize.updater import NetworkGradientUpdater
 from deeplearning4j_tpu_torch.utils.sanitize import validate_batch
 
-_GUARD_ITEMS = ("guardian= (ROADMAP Queue 1 item 5, optimize/guardian.py), "
-                "checkpoint_every= and saver= (item 7, checkpoint/)")
+log = logging.getLogger(__name__)
+
+_GUARD_ITEMS = ("guardian= (ROADMAP Queue 1 item 5b, optimize/guardian.py), "
+                "checkpoint_every= and saver= (item 7a, checkpoint/)")
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -72,7 +86,8 @@ class MultiLayerNetwork(nn.Module):
         live on `device` (None = the CUDA device, raising without one).
         Initial weights come from a CPU generator seeded with the first
         layer's `seed`, so they are the same on every device; dropout
-        draws from a generator on `device` with the same seed."""
+        draws from a generator on `device` with the same seed, and the
+        solvers' per-call seeds from a third, on the host."""
         super().__init__()
         self.conf = conf
         self.device = default_device(device)
@@ -82,7 +97,10 @@ class MultiLayerNetwork(nn.Module):
         seed = conf.confs[0].seed if conf.confs else 0
         self._init_gen = torch.Generator().manual_seed(seed)
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
+        self._seeds = torch.Generator().manual_seed(seed)
         self._pending_params = params
+        self._iteration_count = 0
+        self.listeners: List = []
         self.init()
 
     # ------------------------------------------------------------- set-up
@@ -109,9 +127,29 @@ class MultiLayerNetwork(nn.Module):
             layer.init_params(self._init_gen)
         self._updater = None
         self._updater_state = None
+        self._batch_solver = None
+        self._finetune_solver = None
+        self._pretrain_solvers: Dict[int, Solver] = {}
         if self._pending_params is not None:
             self.set_parameters(self._pending_params)
             self._pending_params = None
+
+    def set_listeners(self, listeners: Sequence) -> None:
+        self.listeners = list(listeners)
+
+    def _next_seed(self) -> int:
+        """A fresh seed for one solver call, drawn on the host (the JAX
+        package's `next_key()`)."""
+        return int(torch.randint(0, 1 << 62, (), generator=self._seeds))
+
+    def _dispatch(self, score) -> None:
+        """Call the listeners with the last iteration and the score, read
+        back to the host only when there are listeners."""
+        if self.listeners:
+            score = float(score)
+            for listener in self.listeners:
+                listener.iteration_done(self, self._iteration_count - 1,
+                                        score)
 
     def _tensor(self, a) -> torch.Tensor:
         """An input on this network's device; float64 narrows to float32
@@ -179,35 +217,133 @@ class MultiLayerNetwork(nn.Module):
         return score
 
     # -------------------------------------------------------------- train
+    def has_pretrain_layers(self) -> bool:
+        return any(hasattr(layer, "pretrain_loss") for layer in self.layers)
+
+    def _iter_batches(self, data):
+        """Feature tensors from a DataSetIterator or a single array."""
+        if hasattr(data, "reset"):
+            data.reset()
+            for ds in data:
+                yield self._tensor(ds.features)
+        else:
+            yield self._tensor(data)
+
+    def _install(self, i: int, table) -> None:
+        """Copy a solver's parameter table into layer `i`."""
+        with torch.no_grad():
+            for name, p in self.layers[i].param_dict().items():
+                p.copy_(table[name])
+
+    def _run_solver(self, solver: Solver, params, *data, **kw):
+        """`solver.optimize` with this network's current listeners (the
+        optimizer keeps its own list, so set_listeners() between fits
+        must reach cached solvers)."""
+        solver.get_optimizer().listeners = list(self.listeners)
+        return solver.optimize(params, *data, **kw)
+
     def pretrain(self, data) -> None:
-        raise NotImplementedError(
-            "layer-wise pretraining is not ported yet (ROADMAP Queue 1 "
-            "item 8, models/pretrain.py)")
+        """Layer-wise unsupervised pretraining (reference pretrain
+        :142/:195): each batch goes through the already-trained lower
+        layers, and each pretrain layer (RBM, autoencoder) below the
+        output is fitted on the result by its own `Solver`, made once and
+        kept across calls. `data` is a DataSetIterator or a feature
+        array."""
+        for i, layer in enumerate(self.layers[:-1]):
+            if not hasattr(layer, "pretrain_loss"):
+                continue
+            solver = self._pretrain_solvers.get(i)
+            if solver is None:
+                _, unravel = ravel_table(layer.param_dict())
+
+                def flat_loss(vec, gen, batch, *, _l=layer, _u=unravel):
+                    return _l.pretrain_loss(_u(vec), batch, gen)
+
+                solver = Solver(layer.conf, flat_loss,
+                                listeners=self.listeners, model=self,
+                                seed=self._next_seed())
+                self._pretrain_solvers[i] = solver
+            for x in self._iter_batches(data):
+                with torch.no_grad():
+                    cur = x
+                    for j in range(i):
+                        cur = self._layer_input(j, cur)
+                        cur = self.layers[j].activate(
+                            self.layers[j].param_dict(), cur)
+                        cur = self._layer_output(j, cur)
+                    cur = self._layer_input(i, cur)
+                # sync=False: the score stays on the device; the lazy %s
+                # reads it only at INFO verbosity
+                new_params, score = self._run_solver(
+                    solver, layer.param_dict(), cur, seed=self._next_seed(),
+                    sync=False)
+                self._install(i, new_params)
+                log.info("Pretrained layer %d (score=%s)", i, score)
 
     def finetune(self, x, labels=None) -> None:
-        raise NotImplementedError(
-            "finetune / backprop=False is not ported yet (ROADMAP Queue 1 "
-            "item 5, optimize/solvers.py)")
+        """Optimise only the output layer on top of frozen features
+        (reference finetune :1044/:1079 -> OutputLayer.fit), with the
+        output layer's solver. Accepts (x, labels) arrays or a
+        DataSetIterator; the frozen features are computed in chunks."""
+        if labels is None:  # iterator protocol
+            x.reset()
+            for ds in x:
+                self.finetune(ds.features, ds.labels)
+            return
+        hidden = self._frozen_features(self._tensor(x))
+        out_layer = self.layers[-1]
+        if self._finetune_solver is None:
+            _, unravel = ravel_table(out_layer.param_dict())
+
+            def flat_loss(vec, hid, lab, *, _u=unravel):
+                return out_layer.loss(_u(vec), hid, lab)
+
+            self._finetune_solver = Solver(out_layer.conf, flat_loss,
+                                           listeners=self.listeners,
+                                           model=self)
+        new_params, _ = self._run_solver(
+            self._finetune_solver, out_layer.param_dict(), hidden,
+            self._tensor(labels), sync=False)
+        self._install(len(self.layers) - 1, new_params)
+
+    def _frozen_features(self, x, chunk_size: int = 4096) -> torch.Tensor:
+        """Features under the output layer, computed in chunks so only
+        (chunk, features) activations are live at once."""
+        if len(self.layers) < 2:
+            return x
+        table = self.param_table
+        with torch.no_grad():
+            if x.shape[0] <= chunk_size:
+                return self.feed_forward_fn(table, x)[-2]
+            return torch.cat([self.feed_forward_fn(
+                table, x[i:i + chunk_size])[-2]
+                for i in range(0, x.shape[0], chunk_size)])
 
     def fit(self, x, labels=None, epochs: int = 1,
             device_feed: Optional[bool] = None, guardian=None,
             checkpoint_every: Optional[int] = None, saver=None) -> None:
         """Train on (x, labels) arrays or a DataSetIterator (reference
         fit(DataSet) :1172 / fit(DataSetIterator) :1021), `epochs` passes.
+        When `conf.pretrain` is set and a layer can pretrain, layer-wise
+        pretraining runs once over the data first.
 
         An iterator goes through a `DeviceFeed` by default: ragged batches
         are padded to the bucket ladder with their real count masked into
         the loss and the updater's ÷batchSize, and the next batches'
         copies run ahead of the step. `device_feed=False` copies each
-        batch as it comes; a DeviceFeed passed as `x` is used as given."""
+        batch as it comes; a DeviceFeed passed as `x` is used as given.
+        Pretraining reads the iterator itself, unpadded."""
         _refuse_guard(guardian, checkpoint_every, saver)
+        pretrain = self.conf.pretrain and self.has_pretrain_layers()
         if labels is None:  # iterator protocol
             if isinstance(x, DeviceFeed):
-                feed = x
+                feed, raw = x, x.source
             elif device_feed is False:
-                feed = None
+                feed, raw = None, x
             else:
-                feed = DeviceFeed(x, device=self.device)
+                feed, raw = DeviceFeed(x, device=self.device), x
+            if pretrain:
+                self.pretrain(raw)
             for _ in range(epochs):
                 if feed is not None:
                     for fb in feed:
@@ -221,26 +357,63 @@ class MultiLayerNetwork(nn.Module):
             return
         x, labels = self._tensor(x), self._tensor(labels)
         self._validate(x, labels, "fit")
+        if pretrain:
+            self.pretrain(x)
         for _ in range(epochs):
             self._fit_supervised(x, labels)
 
     def _fit_supervised(self, x, labels, n_valid=None) -> None:
-        if not self.conf.backprop:
-            return self.finetune(x, labels)
-        return self._backprop_fit(x, labels, n_valid)
+        if self.conf.backprop:
+            return self._backprop_fit(x, labels, n_valid)
+        if n_valid is not None:
+            # the finetune path strips the feed's padding rather than
+            # threading a mask through the frozen-feature solver (a host
+            # read of the count, as in the JAX package)
+            n = int(n_valid)
+            x, labels = x[:n], labels[:n]
+        return self.finetune(x, labels)
 
     def _backprop_fit(self, x, labels, n_valid=None) -> None:
-        """`num_iterations` train steps on one batch (standard minibatch
-        SGD when it is 1), the updater state carried across batches."""
+        """iteration_gradient_descent: `num_iterations` train steps on
+        one batch (standard minibatch SGD when it is 1), the updater
+        state carried across batches. Any other algorithm: the batch
+        solver over the whole packed vector, made once and kept."""
         conf0 = self.layers[-1].conf
         algo = conf0.optimization_algo.lower()
-        if algo != "iteration_gradient_descent":
-            raise NotImplementedError(
-                f"optimization_algo {algo!r} is not ported yet (ROADMAP "
-                f"Queue 1 item 5: the line-search and Hessian-free solvers); "
-                f"use iteration_gradient_descent")
-        for _ in range(conf0.num_iterations):
-            self._train_step(x, labels, n_valid)
+        if algo == "iteration_gradient_descent":
+            score = None
+            for _ in range(conf0.num_iterations):
+                score = self._train_step(x, labels, n_valid)
+            self._dispatch(score)
+            return
+        if self._batch_solver is None:
+            if algo == "hessian_free" and any(
+                    layer.layer_name == "self_attention"
+                    for layer in self.layers):
+                raise ValueError(
+                    "hessian_free needs second derivatives of the loss, "
+                    "and the self_attention layer's flash attention is "
+                    "differentiable once (its backward is the K2/K3 "
+                    "kernels; the JAX package cannot take a jvp through "
+                    "its custom_vjp either); use lbfgs, conjugate_"
+                    "gradient or gradient_descent with this layer")
+            _, unravel = ravel_table(self.param_table)
+
+            def flat_loss(vec, gen, bx, by, *rest, _u=unravel):
+                # rest, when present, is the device feed's row mask
+                return self.loss_fn(_u(vec), bx, by, rng=gen, training=True,
+                                    weights=rest[0] if rest else None)
+
+            self._batch_solver = Solver(conf0, flat_loss,
+                                        listeners=self.listeners,
+                                        model=self, seed=self._next_seed())
+        data = (x, labels)
+        if n_valid is not None:
+            data += (feed_mask(x.shape[0], n_valid, self.device)[0],)
+        new_params, _ = self._run_solver(
+            self._batch_solver, self.param_table, *data,
+            seed=self._next_seed(), sync=False)
+        self.param_table = new_params
 
     def _get_updater(self) -> NetworkGradientUpdater:
         if self._updater is None:
@@ -260,7 +433,10 @@ class MultiLayerNetwork(nn.Module):
         with torch.enable_grad():
             score = self.loss_fn(params, x, labels, rng=self._rng,
                                  training=True, weights=weights)
-            flat = iter(torch.autograd.grad(score, leaves))
+            # a pretrain layer's visible bias is not on the supervised
+            # path: its gradient is zero, as jax.grad gives it
+            flat = iter(torch.autograd.grad(score, leaves, allow_unused=True,
+                                            materialize_grads=True))
         grads = {k: {name: next(flat) for name in table}
                  for k, table in params.items()}
         with torch.no_grad():
@@ -268,6 +444,7 @@ class MultiLayerNetwork(nn.Module):
                 grads, self._updater_state, params, count)
             for p, u in zip(leaves, _leaves(updates)):
                 p.sub_(u)
+        self._iteration_count += 1
         return score.detach()
 
     def fit_scan(self, x, labels, batch_size: int, epochs: int = 1,
@@ -278,7 +455,8 @@ class MultiLayerNetwork(nn.Module):
         minibatches of `batch_size`, one train step a minibatch, the
         updater state carried through. Returns the last batch's score: a
         float (`sync=True`, the one host sync of the call), or the 0-d
-        device tensor (`sync=False`, no host sync at all).
+        device tensor (`sync=False`: no host sync at all, unless listeners
+        are attached, which are called with the score as a float).
 
         When the example count is not a multiple of batch_size the tail
         is dropped, unless `pad_partial=True`, which zero-pads the last
@@ -315,6 +493,7 @@ class MultiLayerNetwork(nn.Module):
             for i in range(n_batches):
                 score = self._train_step(
                     xb[i], yb[i], None if counts is None else counts[i])
+        self._dispatch(score)
         return float(score) if sync else score
 
     # ----------------------------------------------------------- inference

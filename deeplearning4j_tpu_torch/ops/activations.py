@@ -17,6 +17,23 @@ def _leakyrelu(x):
     return torch.where(x >= 0, x, 0.01 * x)
 
 
+def _hardtanh(x):
+    # jnp.clip is maximum then minimum, each splitting a tie's gradient
+    # 0.5/0.5 (torch.clamp would give the whole gradient to x)
+    return torch.minimum(torch.maximum(x, x.new_full((), -1.0)),
+                         x.new_full((), 1.0))
+
+
+def _maxout(x):
+    # jnp.maximum(x, 0.0): gradient 0.5 at x == 0 (torch.relu gives 0)
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def _abs(x):
+    # jnp.abs: gradient 1 at x == 0 (torch.abs gives 0)
+    return torch.where(x >= 0, x, -x)
+
+
 def _softplus(x):
     # jax.nn.softplus is logaddexp(x, 0), with no linear cut-over
     return torch.logaddexp(x, torch.zeros_like(x))
@@ -30,16 +47,16 @@ ACTIVATIONS = {
     "softmax": lambda x: torch.softmax(x, dim=-1),
     "linear": lambda x: x,
     "identity": lambda x: x,
-    "hardtanh": lambda x: torch.clamp(x, -1.0, 1.0),
+    "hardtanh": _hardtanh,
     "softplus": _softplus,
     "softsign": F.softsign,
     "exp": torch.exp,
-    "abs": torch.abs,
+    "abs": _abs,
     "round": torch.round,   # half to even, as jnp.round
     "sign": torch.sign,
     "sqrt": torch.sqrt,
     # the JAX package's maxout is max(x, 0) (no unit groups in a conf)
-    "maxout": torch.relu,
+    "maxout": _maxout,
 }
 
 

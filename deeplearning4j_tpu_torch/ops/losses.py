@@ -19,7 +19,10 @@ EPS = 1e-7
 
 
 def _clip(p):
-    return torch.clamp(p, EPS, 1.0 - EPS)
+    # jnp.clip's tie rule: maximum then minimum, each splitting the
+    # gradient 0.5/0.5 at p == EPS or 1 - EPS (torch.clamp gives it all)
+    return torch.minimum(torch.maximum(p, p.new_full((), EPS)),
+                         p.new_full((), 1.0 - EPS))
 
 
 def _reduce(pointwise, weights, denom_scale: float = 1.0):

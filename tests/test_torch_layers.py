@@ -66,6 +66,10 @@ def test_activation_and_its_gradient_match_jax(name):
     x = rng.normal(size=(6, 9)).astype(np.float32) * 2
     if name == "sqrt":
         x = np.abs(x) + 0.1
+    else:
+        # exact ties: hardtanh's and maxout's gradient splits 0.5/0.5
+        # there, abs's is 1 at 0
+        x[0, :5] = (-1.0, 0.0, 1.0, -1.0, 1.0)
     w = rng.normal(size=x.shape).astype(np.float32)
     ref = jax_act.apply_activation(name, jnp.asarray(x))
     ref_g = jax.grad(lambda a: jnp.sum(
@@ -110,6 +114,20 @@ def test_loss_and_its_gradient_match_jax(name, weighted):
     assert out.shape == ()
     _close(out, ref)
     _grad_close(g, ref_g)
+
+
+def test_probability_clip_splits_a_tie_as_jnp_clip_does():
+    """p exactly at EPS or 1 - EPS: jnp.clip halves the gradient there."""
+    p = np.array([losses.EPS, 1.0 - losses.EPS, 0.5, 1.0, 0.0],
+                 np.float32)
+    w = np.arange(1.0, 6.0, dtype=np.float32)
+    ref = jax.grad(lambda a: jnp.sum(
+        jnp.clip(a, jax_losses.EPS, 1.0 - jax_losses.EPS) * w))(
+            jnp.asarray(p))
+    pt = _t(p, grad=True)
+    (g,) = torch.autograd.grad((losses._clip(pt) * _t(w)).sum(), pt)
+    _close(g, ref, atol=0.0)
+    assert float(g[0]) == 0.5 and float(g[1]) == 1.0
 
 
 def test_all_masked_batch_scores_zero_like_jax():
@@ -349,14 +367,16 @@ def test_layers_keep_the_jax_parameter_names_and_shapes():
 
 def test_registry_names_and_unported_layers():
     layers.make_layer(_conf(layer="dense", n_in=2, n_out=2), device="cpu")
-    assert {"dense", "output", "conv", "convolution",
-            "self_attention"} <= set(layers.LAYER_REGISTRY)
+    for name in ("rbm", "autoencoder", "recursive_autoencoder"):
+        layers.make_layer(_conf(layer=name, n_in=2, n_out=2), device="cpu")
+    assert {"dense", "output", "conv", "convolution", "self_attention",
+            "rbm", "autoencoder", "recursive_autoencoder"} <= set(
+                layers.LAYER_REGISTRY)
     with pytest.raises(ValueError, match="Unknown layer type"):
         layers.make_layer(_conf(layer="nope"), device="cpu")
-    for name in ("rbm", "autoencoder", "lstm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            layers.make_layer(_conf(layer=name, n_in=2, n_out=2),
-                              device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        layers.make_layer(_conf(layer="lstm", n_in=2, n_out=2),
+                          device="cpu")
 
 
 def test_bf16_product_keeps_a_float32_result_on_the_cpu():

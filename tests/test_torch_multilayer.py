@@ -434,16 +434,10 @@ def test_paths_outside_the_slice_raise_naming_the_roadmap():
             net.fit(x, y, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             net.fit_scan(x, y, 4, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net.pretrain(x)
     conf, _ = _mlp()
-    conf.confs[-1].optimization_algo = "lbfgs"
+    conf.confs[0].layer = "lstm"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiLayerNetwork(conf, device="cpu").fit(x, y)
-    conf, _ = _mlp()
-    conf.backprop = False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiLayerNetwork(conf, device="cpu").fit(x, y)
+        MultiLayerNetwork(conf, device="cpu")
 
 
 def test_device_none_means_the_card():
@@ -463,7 +457,10 @@ def test_the_new_modules_import_without_jax():
     has no JAX loaded."""
     mods = ["config", "nn.multilayer", "nn.preprocessors", "models.conv",
             "attention.layer", "optimize.updater", "datasets",
-            "eval", "utils.sanitize", "ops.products", "weights"]
+            "eval", "utils.sanitize", "ops.products", "weights",
+            "optimize", "optimize.terminations", "optimize.stepfunctions",
+            "optimize.line_search", "optimize.listeners",
+            "optimize.solvers", "optimize.solver", "models.pretrain"]
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             + "; ".join(f"import deeplearning4j_tpu_torch.{m}" for m in mods)
             + "; bad = [m for m in sys.modules if m.split('.')[0] in "
