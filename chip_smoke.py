@@ -113,6 +113,40 @@ prints no result):
                   K1 once per gradient (with its lse) plus once per
                   line-search trial (all 5 run on the sync-free path);
                   the loss lower at the end; ms per iteration.
+13. checkpoint   — BASELINE config 1 (784-2048-1024-10, bf16 products)
+                  after 2 fit steps: a ShardedModelSaver step written
+                  from the card restores on the CPU and one written from
+                  the CPU restores on the card (params, hist, velocity,
+                  iteration, iteration_count, cursor, metadata
+                  bit-equal); DefaultModelSaver / load_checkpoint the
+                  same; a bf16 leaf bit for bit; a step without COMMITTED
+                  invisible; a flipped byte raises CorruptShardError.
+                  Bytes a checkpoint, snapshot ms (fit thread), write ms
+                  (writer thread), restore ms.
+14. resume       — BASELINE config 1, 16 batches of 4096 through a
+                  DeviceFeed, 2 epochs, guardian (check 4, snapshot 8),
+                  autosave every 4 batches (keep 3): run A uninterrupted;
+                  run B preempted after batch 10 and batch 21, each time
+                  restored on the card by restore_network and resumed
+                  (start_*, fast_forward); A and B bit-equal (params,
+                  updater state, iteration_count). Then the guarded
+                  fit_scan (checkpoint_every=1 epoch) preempted at epoch
+                  2 and resumed, bit-equal to its uninterrupted run. Each
+                  save's snapshot and write ms, each restore's ms, the
+                  largest in-flight count.
+15. guardian     — bench.py:364 bench_guardian: (a) guarded (never
+                  checking) vs unguarded BASELINE config 1, fit and
+                  fit_scan bit-equal, ms a step, kernels a step, a
+                  guarded epoch under set_sync_debug_mode("error"); (b)
+                  the Iris drill, one poisoned batch of 24 in 150, score
+                  within 1e-3 of the clean run; (c) the attention stack
+                  (bf16, batch 1024) skips a batch with a NaN row, params
+                  and updater state bit-unchanged, K1-K3 once a step;
+                  K1 (bf16, float32) and K2/K3 non-finite where their
+                  plain versions are; (d) a persistent-NaN schedule:
+                  rollbacks at lr_scale 0.5 and 0.25, then GuardianAbort
+                  with the network on its last-good snapshot, the events
+                  those of the CPU run.
 
 Then, at each path's shapes: each kernel's time beside its plain
 version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3;
@@ -120,7 +154,7 @@ the median of 3 separate batches, all three recorded) and its bound, one
 whole prefill, decode step and training step, each profiled; K1, K2 and
 K3 also at the attention stack's shape (B*H 1024, T 28, hd 128, not
 causal). The kernels' launches are counted per path (serve, train,
-multilayer, solver). The last lines are the card as nvidia-smi gives
+multilayer, solver, guardian). The last lines are the card as nvidia-smi gives
 it, the kernels' JSON line (with each kernel's design), and
 {"ok": true, "device": {...}}.
 """
@@ -131,10 +165,12 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1444,6 +1480,647 @@ def phase_solver_attention(device, seed):
             "ok": all(m["ok"] for m in out.values())}
 
 
+# ------------------------------------------- checkpoints and the guardian
+#: where the checkpoint phases write (inside the checkout's git-ignored
+#: build directory; removed when the phases end)
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+#: the resume drill: BASELINE config 1, 16 batches of 4096, 2 epochs,
+#: preempted after batch 10 and again after batch 21 (total)
+RESUME_POLICY = {"check_every": 4, "snapshot_every": 8}
+RESUME_EVERY, RESUME_KEEP, RESUME_STOPS = 4, 3, (10, 11)
+#: the guardian's clean-overhead runs check and snapshot never
+QUIET_POLICY = {"check_every": 10 ** 9, "snapshot_every": 10 ** 9}
+#: bench.py's Iris recovery drill: one poisoned batch of 24 in 150
+IRIS_BATCH, IRIS_STEPS, IRIS_POISONED = 24, 150, 7
+#: the persistent-NaN schedule: 6 clean batches, then NaN to the end
+PERSIST_CLEAN, PERSIST_BATCHES = 6, 16
+PERSIST_POLICY = {"check_every": 2, "snapshot_every": 4,
+                  "max_skips_per_window": 2, "max_rollbacks": 2}
+#: the ladder's events are compared without their (NaN) scores
+EVENT_SCORE_KEYS = ("score", "last_score", "best_recent_score")
+
+
+def tree_diff(a, b, path="") -> dict:
+    """{path: max |a - b|} over every tensor leaf of two trees (dicts,
+    NamedTuples) whose leaves differ in a bit, compared on the host;
+    dtype or shape differences are reported as inf."""
+    if hasattr(a, "_fields"):
+        a, b = a._asdict(), b._asdict()
+    if isinstance(a, dict):
+        out = {}
+        for k in a:
+            out.update(tree_diff(a[k], b[k], f"{path}/{k}"))
+        return out
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return {path: float("inf")}
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    if torch.equal(a, b):
+        return {}
+    return {path: float((a.double() - b.double()).abs().max())}
+
+
+def net_state(net) -> dict:
+    return {"params": net.param_table, "updater": net._updater_state}
+
+
+def bitwise_diff(a, b) -> dict:
+    """The leaves of two networks that differ (empty when bit-equal), and
+    their iteration counts."""
+    diff = tree_diff(net_state(a), net_state(b))
+    if a._iteration_count != b._iteration_count:
+        diff["iteration_count"] = abs(a._iteration_count
+                                      - b._iteration_count)
+    return diff
+
+
+class PreemptAt:
+    """A listener that asks the fit in progress for a preemption after
+    its `at`-th batch."""
+
+    def __init__(self, at: int):
+        self.at, self.count = at, 0
+
+    def iteration_done(self, model, iteration, score):
+        self.count += 1
+        if self.count == self.at:
+            model.guard.request_preemption()
+
+
+class PreemptingSaver:
+    """A ShardedModelSaver that asks for a preemption once it has
+    autosaved position `at` (fit_scan calls no listener between
+    epochs), so the flush comes at the next epoch's tick."""
+
+    def __init__(self, saver, at: int):
+        self.saver, self.at = saver, at
+
+    def save(self, network, **kw):
+        path = self.saver.save(network, **kw)
+        if kw.get("iterator_position") == self.at:
+            network.guard.request_preemption()
+        return path
+
+    def flush(self, timeout=None):
+        self.saver.flush(timeout)
+
+
+def timed_ms(fn):
+    """(result, ms) of fn on the host clock, the device synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mlp_batches(seed):
+    """BASELINE config 1's batches on the host: (batch, n_batches, x, y)."""
+    batch, n_batches, _ = ML_TRAIN["mlp"]
+    x_np, y_np = synthetic_mnist(batch * n_batches, seed=seed)
+    return batch, n_batches, x_np, y_np
+
+
+def phase_checkpoint(device, seed):
+    """BASELINE config 1 at full width after 2 fit steps: a
+    ShardedModelSaver step written from the card restores on the CPU,
+    and one written from the CPU restores on the card, every leaf, the
+    counts, the cursor and the metadata bit-equal; a bf16 leaf (NaN and
+    inf patterns included) round-trips bit for bit; a step without its
+    COMMITTED marker is invisible; a flipped byte raises
+    CorruptShardError; DefaultModelSaver / load_checkpoint round-trip."""
+    from deeplearning4j_tpu_torch.checkpoint import (
+        CorruptShardError, ShardedModelSaver, list_steps, load_tree,
+        restore_network, write_checkpoint)
+    from deeplearning4j_tpu_torch.checkpoint import format as ckfmt
+    from deeplearning4j_tpu_torch.scaleout.checkpoint import (
+        DefaultModelSaver, load_checkpoint)
+
+    batch = ML_TRAIN["mlp"][0]
+    x_np, y_np = synthetic_mnist(2 * batch, seed=seed + 11)
+    net = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    for i in range(2):
+        net.fit(x_np[i * batch:(i + 1) * batch],
+                y_np[i * batch:(i + 1) * batch])
+    meta = {"epoch": 0, "epoch_batch": 2, "save_kind": "autosave"}
+    out = {"card": nvidia_smi(), "params": net.num_params()}
+
+    root = str(CKPT_DIR / "card")
+    saver = ShardedModelSaver(root, keep=3)
+    for position in (1, 2):  # the first allocates pinned buffers
+        torch.cuda.synchronize()
+        saver.save(net, iterator_position=position, metadata=meta)
+        saver.flush()
+    rec = saver.writer.stats()
+    saver.close()
+    out["saves"] = [save_record(h) for h in rec["history"]]
+    out["bytes_per_checkpoint"] = rec["bytes_last"]
+    (cpu, info), out["restore_ms_to_cpu"] = timed_ms(
+        lambda: restore_network(root, device="cpu"))
+    diffs = {"card_to_cpu": bitwise_diff(cpu, net)}
+    cursor_ok = (info["iterator_position"] == 2 and info["step"] == 2
+                 and info["metadata"] == meta)
+
+    cpu_root = str(CKPT_DIR / "cpu")
+    with ShardedModelSaver(cpu_root) as cpu_saver:
+        cpu_saver.save(cpu, iterator_position=3, metadata=meta, wait=True)
+    (back, info2), out["restore_ms_to_card"] = timed_ms(
+        lambda: restore_network(cpu_root, device=device))
+    diffs["cpu_to_card"] = bitwise_diff(back, cpu)
+    cursor_ok &= info2["iterator_position"] == 3 and info2["metadata"] == meta
+
+    npz = str(CKPT_DIR / "model.ckpt")
+    _, out["npz_save_ms"] = timed_ms(lambda: DefaultModelSaver(
+        npz, keep_old=False).save(net, iterator_position=2, metadata=meta))
+    (loaded, info3), out["npz_load_ms_to_card"] = timed_ms(
+        lambda: load_checkpoint(npz, device=device))
+    diffs["npz"] = bitwise_diff(loaded, net)
+    cursor_ok &= info3["iterator_position"] == 2
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bits = torch.randint(-(1 << 15), 1 << 15, (257, 129), generator=gen,
+                         device=device, dtype=torch.int32).to(torch.int16)
+    bits[0, :3] = torch.tensor([0x7FC0, 0x7F80, -128], dtype=torch.int16)
+    bf_root = str(CKPT_DIR / "bf16")
+    write_checkpoint(bf_root, 1, {"w": bits.view(torch.bfloat16)})
+    got = load_tree(bf_root)[0]["w"]
+    bf16_ok = (got.dtype == torch.bfloat16
+               and torch.equal(got.view(torch.int16), bits.cpu()))
+
+    step_dir = write_checkpoint(root, 9, {"w": bits.view(torch.bfloat16)})
+    os.remove(os.path.join(step_dir, ckfmt.MARKER))
+    try:
+        load_tree(root, 9)
+        uncommitted_ok = False
+    except FileNotFoundError:
+        uncommitted_ok = 9 not in list_steps(root)
+    victim = os.path.join(root, ckfmt.step_dir_name(2),
+                          "params__0__W.s00.npy")
+    with open(victim, "r+b") as f:
+        f.seek(-7, os.SEEK_END)
+        byte = f.read(1)
+        f.seek(-7, os.SEEK_END)
+        f.write(bytes([byte[0] ^ 0x01]))
+    try:
+        restore_network(root, device=device)
+        corrupt_ok = False
+    except CorruptShardError as e:
+        corrupt_ok = "params/0/W" in str(e)
+    out.update({"bitwise_diffs": diffs, "cursor_and_metadata_equal":
+                bool(cursor_ok), "bf16_round_trip": bool(bf16_ok),
+                "uncommitted_invisible": bool(uncommitted_ok),
+                "flipped_byte_refused": bool(corrupt_ok)})
+    out["ok"] = (not any(diffs.values()) and cursor_ok and bf16_ok
+                 and uncommitted_ok and corrupt_ok)
+    return out
+
+
+def save_record(h) -> dict:
+    """One save of an AsyncCheckpointWriter's history in ms: what the fit
+    thread paid (the wait for a slot, the snapshot, of it the pinned
+    allocation; their sum the stall) and the writer thread's write."""
+    return {"step": h["step"], "wait_ms": h["wait_s"] * 1e3,
+            "snapshot_ms": h["snapshot_s"] * 1e3,
+            "alloc_ms": h["alloc_s"] * 1e3,
+            "stall_ms": (h["wait_s"] + h["snapshot_s"]) * 1e3,
+            "write_ms": h["write_s"] * 1e3}
+
+
+def save_summary(saves) -> dict:
+    """Median and max of each ms field over a list of save records; the
+    snapshot median of the saves that allocated nothing."""
+    out = {"saves": len(saves),
+           "allocating_saves": sum(s["alloc_ms"] > 0 for s in saves)}
+    for key in ("wait_ms", "snapshot_ms", "alloc_ms", "stall_ms",
+                "write_ms"):
+        vals = [s[key] for s in saves]
+        out[key] = {"median": float(np.median(vals)), "max": max(vals)}
+    warm = [s["snapshot_ms"] for s in saves if s["alloc_ms"] == 0]
+    out["snapshot_ms_reused_buffers"] = (
+        {"median": float(np.median(warm)), "max": max(warm)} if warm
+        else None)
+    return out
+
+
+def count_syncs(fn) -> int:
+    """fn() under set_sync_debug_mode("warn"): the number of
+    synchronizing CUDA operations it made on this thread."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def autosave_syncs(device, x, y, batch) -> dict:
+    """Host syncs of autosaving fit_scan epochs (checkpoint_every=1, 2
+    epochs, 2 saves): unguarded under set_sync_debug_mode("error"),
+    raising if a snapshot synchronises; guarded (never checking) under
+    "warn", where each save reads the guardian's two counters for its
+    metadata, as the JAX package's does, and nothing else may sync."""
+    from deeplearning4j_tpu_torch.checkpoint import ShardedModelSaver
+    from deeplearning4j_tpu_torch.optimize.guardian import GuardianPolicy
+
+    net = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    net.fit_scan(x, y, batch, sync=False)  # warm: the updater state made
+    with ShardedModelSaver(str(CKPT_DIR / "sync_u")) as saver:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            net.fit_scan(x, y, batch, epochs=2, sync=False,
+                         checkpoint_every=1, saver=saver)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        saves_u = saver.writer.stats()["saves"]
+    with ShardedModelSaver(str(CKPT_DIR / "sync_g")) as saver:
+        torch.cuda.synchronize()
+        syncs = count_syncs(lambda: net.fit_scan(
+            x, y, batch, epochs=2, sync=False, checkpoint_every=1,
+            saver=saver, guardian=GuardianPolicy(**QUIET_POLICY)))
+        saves_g = saver.writer.stats()["saves"]
+    return {"unguarded_saves_under_error_mode": saves_u,
+            "guarded_saves": saves_g, "guarded_syncs": syncs,
+            "ok": saves_u == 2 and saves_g == 2 and syncs == 2 * saves_g}
+
+
+def resume_fit(device, x_np, y_np, batch, root, stops):
+    """BASELINE config 1 fitted 2 epochs over a DeviceFeed, guarded and
+    autosaving; preempted after each count of `stops` batches and
+    restored from the latest committed step by restore_network, then
+    finished. Returns (net, record)."""
+    from deeplearning4j_tpu_torch.checkpoint import (ShardedModelSaver,
+                                                     latest_step,
+                                                     restore_network)
+    from deeplearning4j_tpu_torch.datasets import DeviceFeed
+    from deeplearning4j_tpu_torch.optimize.guardian import (
+        GuardianPolicy, TrainingPreempted)
+
+    net = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    start, skip, epochs = {}, 0, 2
+    rec = {"preempted_at": [], "restore_ms": [], "saves": []}
+    max_in_flight = 0
+    for stop in (*stops, None):
+        feed = DeviceFeed(ListDataSetIterator(DataSet(x_np, y_np), batch),
+                          device=device)
+        feed.fast_forward(skip)
+        net.set_listeners([PreemptAt(stop)] if stop else [])
+        saver = ShardedModelSaver(root, keep=RESUME_KEEP)
+        t0 = time.perf_counter()
+        try:
+            net.fit(feed, epochs=epochs, saver=saver,
+                    guardian=GuardianPolicy(**RESUME_POLICY),
+                    checkpoint_every=RESUME_EVERY, **start)
+            preempted = None
+        except TrainingPreempted as e:
+            preempted = e
+        torch.cuda.synchronize()
+        rec.setdefault("fit_ms", []).append(
+            (time.perf_counter() - t0) * 1e3)
+        stats = saver.writer.stats()
+        saver.close()
+        max_in_flight = max(max_in_flight, stats["max_in_flight"])
+        rec["saves"] += [save_record(h) for h in stats["history"]]
+        if preempted is None:
+            break
+        committed = latest_step(root) == preempted.position
+        rec["preempted_at"].append({"position": preempted.position,
+                                    "committed": committed})
+        (net, info), ms = timed_ms(
+            lambda: restore_network(root, device=device))
+        rec["restore_ms"].append(ms)
+        meta = info["metadata"]
+        start = {"start_position": info["iterator_position"],
+                 "start_epoch": meta["epoch"],
+                 "start_epoch_batch": meta["epoch_batch"]}
+        skip, epochs = meta["epoch_batch"], 2 - meta["epoch"]
+    rec["max_in_flight"] = max_in_flight
+    rec["bytes_per_checkpoint"] = stats.get("bytes_last")
+    rec["save_summary"] = save_summary(rec["saves"])
+    return net, rec
+
+
+def phase_resume(device, seed):
+    """BASELINE config 1 at full width (bench.py:79-96), bf16 products,
+    16 batches of 4096 through a DeviceFeed, 2 epochs, guarded, autosave
+    every 4 batches (ShardedModelSaver, keep 3). Run A uninterrupted;
+    run B preempted after batch 10 and after batch 21, each time
+    restored on the card and resumed (start_* and fast_forward): A and B
+    end bit-equal. Then the guarded fit_scan, checkpoint_every=1
+    (epochs), preempted at epoch 2 and resumed the same way."""
+    from deeplearning4j_tpu_torch.checkpoint import (ShardedModelSaver,
+                                                     restore_network)
+    from deeplearning4j_tpu_torch.optimize.guardian import (
+        GuardianPolicy, TrainingPreempted)
+
+    batch, n_batches, x_np, y_np = mlp_batches(seed)
+    net_a, rec_a = resume_fit(device, x_np, y_np, batch,
+                              str(CKPT_DIR / "run_a"), ())
+    net_b, rec_b = resume_fit(device, x_np, y_np, batch,
+                              str(CKPT_DIR / "run_b"), RESUME_STOPS)
+    fit_diff = bitwise_diff(net_b, net_a)
+    want_stops = [{"position": 10, "committed": True},
+                  {"position": 21, "committed": True}]
+
+    x = torch.from_numpy(x_np).to(device)
+    y = torch.from_numpy(y_np).to(device)
+    scan_a = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    with ShardedModelSaver(str(CKPT_DIR / "scan_a")) as saver:
+        scan_a.fit_scan(x, y, batch, epochs=4, checkpoint_every=1,
+                        saver=saver, guardian=GuardianPolicy(
+                            **RESUME_POLICY))
+    scan_b = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    root = str(CKPT_DIR / "scan_b")
+    with ShardedModelSaver(root) as saver:
+        try:
+            scan_b.fit_scan(x, y, batch, epochs=4, checkpoint_every=1,
+                            saver=PreemptingSaver(saver, 1),
+                            guardian=GuardianPolicy(**RESUME_POLICY))
+            scan_stop = None
+        except TrainingPreempted as e:
+            scan_stop = e.position
+    (scan_b, info), scan_restore_ms = timed_ms(
+        lambda: restore_network(root, device=device))
+    with ShardedModelSaver(root) as saver:
+        scan_b.fit_scan(x, y, batch, epochs=4 - info["iterator_position"],
+                        checkpoint_every=1, saver=saver,
+                        guardian=GuardianPolicy(**RESUME_POLICY),
+                        start_position=info["iterator_position"])
+    scan_diff = bitwise_diff(scan_b, scan_a)
+    loss = scan_a.score(x_np[:batch], y_np[:batch])
+    syncs = autosave_syncs(device, x, y, batch)
+    ok = (not fit_diff and rec_b["preempted_at"] == want_stops
+          and not scan_diff and scan_stop == 2 and bool(np.isfinite(loss))
+          and syncs["ok"])
+    return {"card": nvidia_smi(), "params": net_a.num_params(),
+            "batch": batch, "batches": n_batches, "epochs": 2,
+            "policy": RESUME_POLICY, "checkpoint_every": RESUME_EVERY,
+            "run_a": rec_a, "run_b": rec_b,
+            "fit_bitwise_diff": fit_diff,
+            "fit_scan": {"preempted_at_epoch": scan_stop,
+                         "restore_ms": scan_restore_ms,
+                         "bitwise_diff": scan_diff},
+            "score_after_fit_scan": loss, "autosave_syncs": syncs,
+            "ok": ok}
+
+
+def guardian_overhead(device, seed):
+    """(a) of the guardian phase: guarded (never checking) against
+    unguarded on BASELINE config 1; see phase_guardian."""
+    from deeplearning4j_tpu_torch.optimize.guardian import (GuardianPolicy,
+                                                            guardian_state)
+
+    batch, n_batches, x_np, y_np = mlp_batches(seed + 3)
+    x = torch.from_numpy(x_np).to(device)
+    y = torch.from_numpy(y_np).to(device)
+    conf = mlp_conf("bfloat16")
+    fit_u, fit_g = (MultiLayerNetwork(conf, device=device) for _ in "ug")
+    fit_u.fit(ListDataSetIterator(DataSet(x_np, y_np), batch))
+    fit_g.fit(ListDataSetIterator(DataSet(x_np, y_np), batch),
+              guardian=GuardianPolicy(**QUIET_POLICY))
+    fit_diff = bitwise_diff(fit_g, fit_u)
+    scan_u, scan_g = (MultiLayerNetwork(conf, device=device) for _ in "ug")
+    runs = {"unguarded": [], "guarded": []}
+    for name in ("unguarded", "guarded", "guarded", "unguarded"):
+        net, kw = ((scan_u, {}) if name == "unguarded" else
+                   (scan_g, {"guardian": GuardianPolicy(**QUIET_POLICY)}))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        net.fit_scan(x, y, batch, sync=False, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        runs[name].append(start.elapsed_time(end) / n_batches)
+    scan_diff = bitwise_diff(scan_g, scan_u)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scan_g.fit_scan(x, y, batch, sync=False,
+                        guardian=GuardianPolicy(**QUIET_POLICY))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms_u = sum(runs["unguarded"]) / 2
+    ms_g = sum(runs["guarded"]) / 2
+    gstate = guardian_state(device=device)
+    xb, yb = x[:batch], y[:batch]
+    prof_u = device_profile(lambda: scan_u._train_step(xb, yb), iters=3,
+                            groups=ML_GROUPS)
+    prof_g = device_profile(
+        lambda: scan_g._guarded_train_step(xb, yb, None, gstate), iters=3,
+        groups=ML_GROUPS)
+    return {"fit_bitwise_diff": fit_diff, "fit_scan_bitwise_diff": scan_diff,
+            "ms_per_step_runs": runs, "ms_per_step_unguarded": ms_u,
+            "ms_per_step_guarded": ms_g,
+            "overhead_pct": (ms_g - ms_u) / ms_u * 100.0,
+            "kernels_per_step_unguarded": prof_u.get("kernels_per_call"),
+            "kernels_per_step_guarded": prof_g.get("kernels_per_call"),
+            "device_ms_per_step_unguarded": prof_u.get("device_ms_per_call"),
+            "device_ms_per_step_guarded": prof_g.get("device_ms_per_call"),
+            "step_profile_unguarded": prof_u, "step_profile_guarded": prof_g,
+            "no_host_sync_in_guarded_epoch": True,
+            "ok": not fit_diff and not scan_diff}
+
+
+def iris_conf():
+    """bench.py's recovery-drill net: 4-8-3 tanh, SGD + momentum 0.5."""
+    return (NeuralNetConfiguration.builder()
+            .lr(0.1).n_in(4).activation_function("tanh")
+            .optimization_algo("iteration_gradient_descent")
+            .num_iterations(1).use_adagrad(False).momentum(0.5)
+            .list(2).hidden_layer_sizes([8])
+            .override(1, layer="output", loss_function="mcxent",
+                      activation_function="softmax", n_out=3)
+            .pretrain(False).build())
+
+
+def iris_stream(n_steps, seed=0):
+    from deeplearning4j_tpu_torch.datasets import load_iris
+
+    data = load_iris()
+    ix, iy = np.asarray(data.features), np.asarray(data.labels)
+    rng = np.random.RandomState(seed)
+    sel = np.concatenate([rng.choice(len(ix), IRIS_BATCH, replace=False)
+                          for _ in range(n_steps)])
+    return ix, iy, ix[sel].copy(), iy[sel].copy()
+
+
+def iris_drill(device):
+    """(b): bench.py:405-450 on the card."""
+    from deeplearning4j_tpu_torch.optimize.guardian import GuardianPolicy
+    from deeplearning4j_tpu_torch.optimize.listeners import \
+        CollectGuardianEvents
+
+    ix, iy, dx, dy = iris_stream(IRIS_STEPS)
+    clean = MultiLayerNetwork(iris_conf(), device=device)
+    clean.fit(ListDataSetIterator(DataSet(dx, dy), IRIS_BATCH))
+    score_clean = clean.score(ix, iy)
+    dx_bad = dx.copy()
+    dx_bad[IRIS_POISONED * IRIS_BATCH:(IRIS_POISONED + 1) * IRIS_BATCH] = \
+        np.nan
+    ev = CollectGuardianEvents()
+    faulty = MultiLayerNetwork(iris_conf(), device=device)
+    faulty.fit(ListDataSetIterator(DataSet(dx_bad, dy), IRIS_BATCH),
+               guardian=GuardianPolicy(check_every=4, snapshot_every=16,
+                                       listeners=[ev]))
+    finite = bool(torch.isfinite(faulty.params()).all())
+    delta = abs(faulty.score(ix, iy) - score_clean)
+    return {"steps": IRIS_STEPS, "poisoned_batch": IRIS_POISONED,
+            "events": ev.kinds(), "params_finite": finite,
+            "score_clean": score_clean, "score_delta": delta,
+            "ok": finite and delta < 1e-3 and "skip" in ev.kinds()}
+
+
+def nan_inputs(device, dtype, seed):
+    """q, k, v at the attention stack's shape with a NaN query row, a
+    NaN key row and an inf value row in three different sequences."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(1024, 28, 128, generator=gen, device=device
+                           ).to(dtype) for _ in range(3))
+    q[5, 3] = float("nan")
+    k[9, 2] = float("nan")
+    v[12, 4] = float("inf")
+    return q, k, v
+
+
+def kernels_on_nan(device, seed):
+    """(c), kernels: K1 (bf16 wgmma, float32 scalar) and K2/K3 on the
+    inputs of nan_inputs: non-finite exactly where their plain versions
+    are; the finite parts within TOL / BWD_TOL."""
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = nan_inputs(device, dt, seed)
+        o, lse = flash._flash_forward(q, k, v, False, True)
+        ref_o, ref_lse = flash.flash_attention_ref(q, k, v, False, True)
+        do = torch.randn_like(q)
+        grads = flash._flash_backward(q, k, v, o, lse, do, False)
+        refs = flash.flash_attention_bwd_ref(q, k, v, ref_o, ref_lse, do,
+                                             False)
+        row = {}
+        for name, got, ref in (("out", o, ref_o), ("dq", grads[0], refs[0]),
+                               ("dk", grads[1], refs[1]),
+                               ("dv", grads[2], refs[2])):
+            fin, ref_fin = torch.isfinite(got), torch.isfinite(ref)
+            same = bool(torch.equal(fin, ref_fin))
+            err = max_err(got[fin & ref_fin].float(),
+                          ref[fin & ref_fin].float())
+            scale = float(ref[ref_fin].float().abs().max())
+            row[name] = {"nonfinite": int((~fin).sum()),
+                         "plain_nonfinite": int((~ref_fin).sum()),
+                         "same_positions": same, "max_abs_err": err,
+                         "ok": same and err <= (TOL[dt] if name == "out"
+                                                else BWD_TOL[dt] * scale)}
+        out[str(dt).split(".")[-1]] = row
+    torch.cuda.synchronize()
+    return out, all(r["ok"] for d in out.values() for r in d.values())
+
+
+def attention_nan_skip(device, seed):
+    """(c), path: the attention stack (bf16, batch 1024) fits a clean
+    batch, then a batch with a NaN row under the guardian: the step is
+    skipped and params and updater state stay bit-unchanged; K1, K2 and
+    K3 launched once a step, as on the multilayer path."""
+    from deeplearning4j_tpu_torch.optimize.guardian import GuardianPolicy
+    from deeplearning4j_tpu_torch.optimize.listeners import \
+        CollectGuardianEvents
+
+    batch = ML_TRAIN["attention"][0]
+    x_np, y_np = synthetic_mnist(2 * batch, seed=seed + 5)
+    net = MultiLayerNetwork(attention_conf("bfloat16"), device=device)
+    policy = GuardianPolicy(check_every=1)
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    net.fit(x_np[:batch], y_np[:batch], guardian=policy)
+    before = {"params": {k: {n: p.detach().clone() for n, p in t.items()}
+                         for k, t in net.param_table.items()},
+              "updater": _clone_state(net._updater_state)}
+    bad = x_np[batch:].copy()
+    bad[17] = np.nan
+    ev = CollectGuardianEvents()
+    net.fit(bad, y_np[batch:], guardian=GuardianPolicy(check_every=1,
+                                                        listeners=[ev]))
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    diff = tree_diff(net_state(net), before)
+    want = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    return {"batch": batch, "events": ev.kinds(),
+            "bitwise_diff_across_skip": diff, "launches": launches,
+            "launches_expected": want,
+            "ok": not diff and ev.kinds() == ["skip"] and launches == want}
+
+
+def _clone_state(state):
+    from deeplearning4j_tpu_torch.optimize.updater import UpdaterState
+
+    return {k: UpdaterState({n: t.clone() for n, t in s.hist.items()},
+                            {n: t.clone() for n, t in s.velocity.items()},
+                            s.iteration.clone())
+            for k, s in state.items()}
+
+
+def persistent_nan(device):
+    """(d): 6 clean batches then NaN to the end, on `device`: the
+    events (kind, step, detail but scores) and the abort report; the
+    network left bit-equal to the last-good snapshot."""
+    from deeplearning4j_tpu_torch.optimize.guardian import (GuardianAbort,
+                                                            GuardianPolicy)
+    from deeplearning4j_tpu_torch.optimize.listeners import \
+        CollectGuardianEvents
+
+    _, _, dx, dy = iris_stream(PERSIST_BATCHES, seed=2)
+    dx[PERSIST_CLEAN * IRIS_BATCH:] = np.nan
+    net = MultiLayerNetwork(iris_conf(), device=device)
+    ev = CollectGuardianEvents()
+    report, at_last_good = None, False
+    try:
+        net.fit(ListDataSetIterator(DataSet(dx, dy), IRIS_BATCH),
+                guardian=GuardianPolicy(listeners=[ev], **PERSIST_POLICY))
+    except GuardianAbort as e:
+        report = {k: e.report[k] for k in ("steps", "skipped", "rollbacks",
+                                           "lr_scale", "reason")}
+        params, state = e.last_good
+        at_last_good = not tree_diff(net_state(net),
+                                     {"params": params, "updater": state})
+    events = [[e.kind, e.step, {k: v for k, v in e.info.items()
+                                if k not in EVENT_SCORE_KEYS}]
+              for e in ev.events]
+    return events, report, at_last_good, net.params().detach().cpu()
+
+
+def phase_guardian(device, seed):
+    """bench.py:364 bench_guardian on the card: (a) clean guarded vs
+    unguarded runs of BASELINE config 1 (fit and fit_scan bit-equal; ms
+    a step; kernels a step by torch.profiler; a guarded epoch under
+    set_sync_debug_mode("error")); (b) the Iris NaN-recovery drill;
+    (c) a NaN row on the attention stack skipped, K1-K3 on non-finite
+    inputs against their plain versions; (d) a persistent-NaN schedule:
+    rollbacks at lr_scale 0.5 then 0.25, then GuardianAbort with the
+    network on the last-good snapshot, the events as the CPU run's."""
+    overhead = guardian_overhead(device, seed)
+    iris = iris_drill(device)
+    kernels, kernels_ok = kernels_on_nan(device, seed)
+    skip = attention_nan_skip(device, seed)
+    card = persistent_nan(device)
+    cpu = persistent_nan("cpu")
+    rollbacks = [e[2].get("lr_scale") for e in card[0]
+                 if e[0] == "rollback"]
+    persist = {"events": card[0], "cpu_events": cpu[0],
+               "report": card[1], "cpu_report": cpu[1],
+               "rollback_lr_scales": rollbacks,
+               "network_at_last_good": card[2],
+               "params_max_abs_diff_vs_cpu": max_err(card[3], cpu[3]),
+               "ok": (card[0] == cpu[0] and card[1] == cpu[1]
+                      and card[1] is not None and rollbacks == [0.5, 0.25]
+                      and card[2])}
+    return {"card": nvidia_smi(), "overhead": overhead, "iris": iris,
+            "nan_kernels": kernels, "nan_kernels_ok": kernels_ok,
+            "attention_skip": skip, "persistent_nan": persist,
+            "launches": skip["launches"],
+            "ok": (overhead["ok"] and iris["ok"] and kernels_ok
+                   and skip["ok"] and persist["ok"])}
+
+
 def device_profile(fn, iters: int, groups=None) -> dict:
     """Device time by kernel over `iters` calls (torch.profiler, CUDA
     activity only counted from kernel events), and the device's busy
@@ -1653,9 +2330,13 @@ def main(argv=None) -> int:
     ml_shape = multilayer_kernel_timing(device, timer, args.seed)
     ml_train["kernel_timing_seconds"] = time.perf_counter() - t0
 
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     for name, fn in (("solver_parity", phase_solver_parity),
                      ("dbn", phase_dbn),
-                     ("solver_attention", phase_solver_attention)):
+                     ("solver_attention", phase_solver_attention),
+                     ("checkpoint", phase_checkpoint),
+                     ("resume", phase_resume),
+                     ("guardian", phase_guardian)):
         t0 = time.perf_counter()
         res = fn(device, args.seed)
         res["seconds"] = time.perf_counter() - t0
@@ -1663,6 +2344,7 @@ def main(argv=None) -> int:
         record[name] = res
         if not res["ok"]:
             raise AssertionError(f"{name} failed: {res}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
     k1, k4 = kernels
     k1["launches_by_path"] = {"serve": k1["launches"],
@@ -1674,6 +2356,8 @@ def main(argv=None) -> int:
             ml_train["launches"][row["name"]]
         row["launches_by_path"]["solver"] = \
             record["solver_attention"]["launches"][row["name"]]
+        row["launches_by_path"]["guardian"] = \
+            record["guardian"]["launches"][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
         row["multilayer_shape"] = ml_shape[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"],

@@ -14,6 +14,10 @@ copies, the counterpart of the JAX package's `datasets/device_feed.py`.
    and copied with `non_blocking=True`, so the copy runs on the copy
    engine while the current step computes (PyTorch's caching host
    allocator keeps a pinned buffer until its copy has finished).
+3. **Resume.** `cursor` counts the batches handed out in the current
+   pass; `fast_forward(n)` drops the first `n` source batches of the
+   next pass without padding or copying them, so a resumed run starts
+   at a checkpoint's within-epoch cursor (the guardian's `epoch_batch`).
 """
 
 from __future__ import annotations
@@ -140,6 +144,10 @@ class DeviceFeed:
         self.bucket_hits = {b: 0 for b in self.buckets}
         self.padded_examples = 0
         self.batches = 0
+        #: absolute batch index within the current pass: the guardian's
+        #: checkpoint cursor reads as "batches consumed this epoch"
+        self.cursor = 0
+        self._skip_next = 0
 
     # ------------------------------------------------------------ padding
     def _pad(self, ds) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -169,9 +177,24 @@ class DeviceFeed:
                          put(torch.tensor(n, dtype=torch.int32)))
 
     # ---------------------------------------------------------- streaming
+    def fast_forward(self, n: int) -> None:
+        """Drop the first `n` source batches of the NEXT pass, the
+        mid-epoch resume primitive: the stream starts at a checkpoint's
+        within-epoch cursor without padding or copying the skipped
+        batches. One-shot (the pass after consumes the whole stream
+        again); `cursor` starts at `n` for that pass."""
+        if n < 0:
+            raise ValueError(f"fast_forward must be >= 0, got {n}")
+        self._skip_next = int(n)
+
     def _host_batches(self):
         self.source.reset()
+        skip, self._skip_next = self._skip_next, 0
+        self.cursor = skip
         for ds in self.source:
+            if skip > 0:
+                skip -= 1
+                continue
             yield self._pad(ds)
 
     def __iter__(self) -> Iterator[FeedBatch]:
@@ -183,9 +206,23 @@ class DeviceFeed:
             window.append(self._put(padded))
             if len(window) < depth:
                 continue
+            self.cursor += 1
             yield window.popleft()
         while window:
+            self.cursor += 1
             yield window.popleft()
+
+    # --------------------------------------------------- iterator surface
+    def batch(self) -> int:
+        return self.source.batch()
+
+    def reset(self) -> None:
+        self.source.reset()
+
+    def close(self) -> None:
+        close = getattr(self.source, "close", None)
+        if close is not None:
+            close()
 
     def stats(self) -> dict:
         """How many batches hit each bucket and how many padded

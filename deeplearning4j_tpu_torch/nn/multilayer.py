@@ -35,10 +35,15 @@ output layer's solver over chunked frozen features) and layer-wise
 call, and by the solvers each iteration; calling one reads the score
 back to the host.
 
-Not in this slice, each raising NotImplementedError that names its
-ROADMAP item: the guardian, autosave and savers (`guardian=`,
-`checkpoint_every=`, `saver=`). The JAX package's telemetry counters,
-chaos points and compile cache are left out.
+The guardian (`optimize/guardian.py`) wraps `fit` and `fit_scan` as in
+the JAX package: `guardian=` switches to the guarded step (all-finite
+predicate and `torch.where` commit on the device, no host sync; with no
+fault it gives the unguarded step's params bit for bit),
+`checkpoint_every=` / `saver=` autosave and arm the preemption flush,
+and `start_position` / `start_epoch` / `start_epoch_batch` seed the
+cursor of a resumed run. With all of them off, `fit` and `fit_scan` run
+the unguarded step. The JAX package's telemetry counters, chaos points
+and compile cache are left out.
 """
 
 from __future__ import annotations
@@ -57,6 +62,10 @@ from deeplearning4j_tpu_torch.datasets.device_feed import (
     DEFAULT_MIN_BUCKET, DeviceFeed, bucket_for, feed_mask, pad_rows)
 from deeplearning4j_tpu_torch.nn.api import merge_params
 from deeplearning4j_tpu_torch.nn.layers import make_layer
+from deeplearning4j_tpu_torch.optimize.guardian import (GuardianAbort,
+                                                        all_finite, advance,
+                                                        apply_lr_scale,
+                                                        commit, make_guard)
 from deeplearning4j_tpu_torch.optimize.solver import Solver
 from deeplearning4j_tpu_torch.optimize.solvers import ravel_table
 from deeplearning4j_tpu_torch.optimize.updater import NetworkGradientUpdater
@@ -64,18 +73,9 @@ from deeplearning4j_tpu_torch.utils.sanitize import validate_batch
 
 log = logging.getLogger(__name__)
 
-_GUARD_ITEMS = ("guardian= (ROADMAP Queue 1 item 5b, optimize/guardian.py), "
-                "checkpoint_every= and saver= (item 7a, checkpoint/)")
-
 
 def _leaves(tree) -> List[torch.Tensor]:
     return [p for table in tree.values() for p in table.values()]
-
-
-def _refuse_guard(guardian, checkpoint_every, saver) -> None:
-    if guardian is not None or checkpoint_every is not None \
-            or saver is not None:
-        raise NotImplementedError(f"not ported yet: {_GUARD_ITEMS}")
 
 
 class MultiLayerNetwork(nn.Module):
@@ -101,6 +101,10 @@ class MultiLayerNetwork(nn.Module):
         self._pending_params = params
         self._iteration_count = 0
         self.listeners: List = []
+        #: the TrainingGuard of the guarded / checkpointed fit in
+        #: progress (None otherwise): a listener may call its
+        #: request_preemption()
+        self.guard = None
         self.init()
 
     # ------------------------------------------------------------- set-up
@@ -321,7 +325,9 @@ class MultiLayerNetwork(nn.Module):
 
     def fit(self, x, labels=None, epochs: int = 1,
             device_feed: Optional[bool] = None, guardian=None,
-            checkpoint_every: Optional[int] = None, saver=None) -> None:
+            checkpoint_every: Optional[int] = None, saver=None,
+            start_position: int = 0, start_epoch: int = 0,
+            start_epoch_batch: int = 0) -> None:
         """Train on (x, labels) arrays or a DataSetIterator (reference
         fit(DataSet) :1172 / fit(DataSetIterator) :1021), `epochs` passes.
         When `conf.pretrain` is set and a layer can pretrain, layer-wise
@@ -332,8 +338,36 @@ class MultiLayerNetwork(nn.Module):
         the loss and the updater's ÷batchSize, and the next batches'
         copies run ahead of the step. `device_feed=False` copies each
         batch as it comes; a DeviceFeed passed as `x` is used as given.
-        Pretraining reads the iterator itself, unpadded."""
-        _refuse_guard(guardian, checkpoint_every, saver)
+        Pretraining reads the iterator itself, unpadded.
+
+        Fault tolerance (optimize/guardian.py): `guardian=` (a
+        GuardianPolicy, or True for defaults) takes the guarded step,
+        which skips a step with a non-finite gradient or loss on the
+        device; persistent trouble rolls back to a last-good snapshot
+        with LR backoff, and `GuardianAbort` leaves the network on the
+        last-good state. `checkpoint_every=N` autosaves a resumable
+        checkpoint every N batches through `saver` (default: a rotating
+        DefaultModelSaver); any saver also arms a SIGTERM hook that
+        flushes a final checkpoint and raises `TrainingPreempted`. The
+        guardian needs the iteration_gradient_descent algorithm.
+
+        Resuming: `start_position` / `start_epoch` / `start_epoch_batch`
+        take the restored checkpoint's `iterator_position` and metadata
+        `epoch` / `epoch_batch`, so later autosaves continue the step
+        numbering and record a truthful within-epoch cursor; pair them
+        with `DeviceFeed.fast_forward(epoch_batch)`."""
+        guard = make_guard(self, guardian, checkpoint_every, saver,
+                           start_position=start_position,
+                           start_epoch=start_epoch,
+                           start_epoch_batch=start_epoch_batch)
+        if guard is None:
+            return self._fit_impl(x, labels, epochs, device_feed, None)
+        with guard:
+            return self._fit_impl(x, labels, epochs, device_feed, guard)
+
+    def _fit_impl(self, x, labels, epochs, device_feed, guard) -> None:
+        """One fit body for the guarded and the plain path; with
+        guard=None every guard hook is skipped."""
         pretrain = self.conf.pretrain and self.has_pretrain_layers()
         if labels is None:  # iterator protocol
             if isinstance(x, DeviceFeed):
@@ -343,28 +377,41 @@ class MultiLayerNetwork(nn.Module):
             else:
                 feed, raw = DeviceFeed(x, device=self.device), x
             if pretrain:
-                self.pretrain(raw)
+                self.pretrain(raw)  # host-driven per layer: unguarded
             for _ in range(epochs):
+                if guard is not None:
+                    guard.begin_epoch()
                 if feed is not None:
-                    for fb in feed:
-                        self._fit_supervised(fb.features, fb.labels,
-                                             n_valid=fb.n_valid)
+                    batches = ((fb.features, fb.labels, fb.n_valid)
+                               for fb in feed)
                 else:
                     x.reset()
-                    for ds in x:
-                        self._fit_supervised(self._tensor(ds.features),
-                                             self._tensor(ds.labels))
+                    batches = ((self._tensor(ds.features),
+                                self._tensor(ds.labels), None) for ds in x)
+                for bx, by, n_valid in batches:
+                    self._fit_supervised(bx, by, n_valid, guard)
+                    if guard is not None:
+                        guard.tick()
             return
         x, labels = self._tensor(x), self._tensor(labels)
         self._validate(x, labels, "fit")
         if pretrain:
             self.pretrain(x)
         for _ in range(epochs):
-            self._fit_supervised(x, labels)
+            if guard is not None:
+                guard.begin_epoch()
+            self._fit_supervised(x, labels, None, guard)
+            if guard is not None:
+                guard.tick()
 
-    def _fit_supervised(self, x, labels, n_valid=None) -> None:
+    def _fit_supervised(self, x, labels, n_valid=None, guard=None) -> None:
         if self.conf.backprop:
-            return self._backprop_fit(x, labels, n_valid)
+            return self._backprop_fit(x, labels, n_valid, guard)
+        if guard is not None and guard.guarded:
+            raise ValueError(
+                "guardian= requires the backprop iteration_gradient_"
+                "descent path; the finetune path is host-driven "
+                "(autosave via checkpoint_every= still works)")
         if n_valid is not None:
             # the finetune path strips the feed's padding rather than
             # threading a mask through the frozen-feature solver (a host
@@ -373,19 +420,32 @@ class MultiLayerNetwork(nn.Module):
             x, labels = x[:n], labels[:n]
         return self.finetune(x, labels)
 
-    def _backprop_fit(self, x, labels, n_valid=None) -> None:
+    def _backprop_fit(self, x, labels, n_valid=None, guard=None) -> None:
         """iteration_gradient_descent: `num_iterations` train steps on
         one batch (standard minibatch SGD when it is 1), the updater
-        state carried across batches. Any other algorithm: the batch
-        solver over the whole packed vector, made once and kept."""
+        state carried across batches; guarded steps when `guard` has a
+        policy. Any other algorithm: the batch solver over the whole
+        packed vector, made once and kept."""
         conf0 = self.layers[-1].conf
         algo = conf0.optimization_algo.lower()
+        guarded = guard is not None and guard.guarded
         if algo == "iteration_gradient_descent":
+            if guarded:
+                self._arm(guard)
             score = None
             for _ in range(conf0.num_iterations):
-                score = self._train_step(x, labels, n_valid)
+                if guarded:
+                    score = self._guarded_step(guard, x, labels, n_valid)
+                    self._observe(guard, score, 1)
+                else:
+                    score = self._train_step(x, labels, n_valid)
             self._dispatch(score)
             return
+        if guarded:
+            raise ValueError(
+                "guardian= supports only the iteration_gradient_descent "
+                f"algorithm (got {algo!r}); the line-search solvers "
+                "drive their own inner loop")
         if self._batch_solver is None:
             if algo == "hessian_free" and any(
                     layer.layer_name == "self_attention"
@@ -415,20 +475,54 @@ class MultiLayerNetwork(nn.Module):
             seed=self._next_seed(), sync=False)
         self.param_table = new_params
 
+    # ------------------------------------------------------------ guardian
+    def _live(self):
+        """The state the guardian snapshots and rolls back: (param table,
+        updater state)."""
+        return self.param_table, self._updater_state
+
+    def _restore_live(self, live) -> None:
+        """Install a (param table, updater state) the guardian handed
+        back (a rollback, or the last-good state of an abort)."""
+        self.param_table, self._updater_state = live
+
+    def _arm(self, guard) -> None:
+        if self._updater_state is None:
+            self._updater_state = self._get_updater().init(self.param_table)
+        guard.arm_once(self._live())
+
+    def _guarded_step(self, guard, x, labels, n_valid) -> torch.Tensor:
+        """One guarded train step, its carry kept in the guard's session;
+        returns the score (a 0-d device tensor)."""
+        score, guard.session.gstate = self._guarded_train_step(
+            x, labels, n_valid, guard.gstate)
+        return score
+
+    def _observe(self, guard, score, steps: int) -> None:
+        """The guardian's observation of `steps` guarded steps: it may
+        roll the network back, or raise GuardianAbort with the network
+        left on the last-good state."""
+        try:
+            live, rolled = guard.post_step(self._live(), guard.gstate, score,
+                                           steps=steps)
+        except GuardianAbort as e:
+            self._restore_live(e.last_good)
+            raise
+        if rolled:
+            self._restore_live(live)
+
     def _get_updater(self) -> NetworkGradientUpdater:
         if self._updater is None:
             self._updater = NetworkGradientUpdater.for_network(self)
         return self._updater
 
-    def _train_step(self, x, labels, n_valid=None) -> torch.Tensor:
-        """One step: autograd of loss_fn at the live parameters, the
-        per-layer updater, p -= update in place. The score comes back as
-        a 0-d device tensor; nothing is read back to the host."""
+    def _grads(self, x, labels, n_valid):
+        """(score, grads, live leaves, count): autograd of loss_fn at the
+        live parameters; the updater state made on first use."""
         weights, count = feed_mask(x.shape[0], n_valid, self.device)
         params = self.param_table
-        updater = self._get_updater()
         if self._updater_state is None:
-            self._updater_state = updater.init(params)
+            self._updater_state = self._get_updater().init(params)
         leaves = _leaves(params)
         with torch.enable_grad():
             score = self.loss_fn(params, x, labels, rng=self._rng,
@@ -439,18 +533,55 @@ class MultiLayerNetwork(nn.Module):
                                             materialize_grads=True))
         grads = {k: {name: next(flat) for name in table}
                  for k, table in params.items()}
+        return score.detach(), grads, leaves, count
+
+    def _train_step(self, x, labels, n_valid=None) -> torch.Tensor:
+        """One step: autograd of loss_fn at the live parameters, the
+        per-layer updater, p -= update in place. The score comes back as
+        a 0-d device tensor; nothing is read back to the host."""
+        score, grads, leaves, count = self._grads(x, labels, n_valid)
         with torch.no_grad():
-            updates, self._updater_state = updater.update(
-                grads, self._updater_state, params, count)
+            updates, self._updater_state = self._get_updater().update(
+                grads, self._updater_state, self.param_table, count)
             for p, u in zip(leaves, _leaves(updates)):
                 p.sub_(u)
         self._iteration_count += 1
-        return score.detach()
+        return score
+
+    @torch.no_grad()
+    def _guarded_train_step(self, x, labels, n_valid, gstate):
+        """The guarded step: the unguarded step's arithmetic, committed
+        by `torch.where` on a 0-d all-finite flag reduced on the device.
+        The updater changes hist / velocity / iteration in place, so
+        their old values are copied first (x * 1.0, bit-exact) and put
+        back where the step is skipped; the params take p - u * lr_scale
+        (the unguarded p -= u bit for bit at scale 1.0) where it is
+        clean. Returns (score, gstate); no host sync."""
+        score, grads, leaves, count = self._grads(x, labels, n_valid)
+        ok = all_finite(score, grads)
+        state = self._updater_state
+        hist = [t for s in state.values() for t in s.hist.values()]
+        vel = [t for s in state.values() for t in s.velocity.values()]
+        its = [s.iteration for s in state.values()]
+        old_hist = torch._foreach_mul(hist, 1.0)
+        old_vel = torch._foreach_mul(vel, 1.0)
+        updates, _ = self._get_updater().update(grads, state,
+                                                self.param_table, count)
+        # scaled before velocity is committed: an update may BE velocity
+        new = torch._foreach_sub(leaves, apply_lr_scale(_leaves(updates),
+                                                        gstate))
+        commit(ok, leaves, new, out=leaves)
+        commit(ok, old_hist + old_vel, hist + vel, out=hist + vel)
+        skipped = torch.logical_not(ok).to(torch.int32)
+        torch._foreach_sub_(its, [skipped] * len(its))
+        self._iteration_count += 1
+        return score, advance(gstate, ok)
 
     def fit_scan(self, x, labels, batch_size: int, epochs: int = 1,
                  pad_partial: bool = False, guardian=None,
                  checkpoint_every: Optional[int] = None, saver=None,
-                 sync: bool = True):
+                 sync: bool = True, start_position: int = 0,
+                 start_epoch: int = 0, start_epoch_batch: int = 0):
         """Whole-epoch training: `epochs` passes over x cut into
         minibatches of `batch_size`, one train step a minibatch, the
         updater state carried through. Returns the last batch's score: a
@@ -461,8 +592,13 @@ class MultiLayerNetwork(nn.Module):
         When the example count is not a multiple of batch_size the tail
         is dropped, unless `pad_partial=True`, which zero-pads the last
         minibatch and masks its padding rows out of the loss and the
-        updater's ÷batchSize (the device feed's masking)."""
-        _refuse_guard(guardian, checkpoint_every, saver)
+        updater's ÷batchSize (the device feed's masking).
+
+        `guardian=` takes the guarded step for every minibatch (a
+        non-finite one is skipped on the device) and observes once per
+        epoch, the ladder's cadences still counted in batches (each
+        epoch advances them by n_batches); `checkpoint_every=` counts
+        epochs, and the cursor (`start_*`) too."""
         conf0 = self.layers[-1].conf
         if conf0.optimization_algo.lower() != "iteration_gradient_descent":
             raise ValueError("fit_scan supports iteration_gradient_descent")
@@ -488,13 +624,40 @@ class MultiLayerNetwork(nn.Module):
             counts = torch.full((n_batches,), batch_size, dtype=torch.int32,
                                 device=self.device)
             counts[-1] = tail
-        score = None
-        for _ in range(int(epochs)):
-            for i in range(n_batches):
-                score = self._train_step(
-                    xb[i], yb[i], None if counts is None else counts[i])
+        batches = [(xb[i], yb[i], None if counts is None else counts[i])
+                   for i in range(n_batches)]
+        guard = make_guard(self, guardian, checkpoint_every, saver,
+                           start_position=start_position,
+                           start_epoch=start_epoch,
+                           start_epoch_batch=start_epoch_batch)
+        if guard is None:
+            score = self._scan_epochs(batches, int(epochs), None)
+        else:
+            with guard:
+                score = self._scan_epochs(batches, int(epochs), guard)
         self._dispatch(score)
         return float(score) if sync else score
+
+    def _scan_epochs(self, batches, epochs: int, guard) -> torch.Tensor:
+        """fit_scan's loop for the guarded and the plain path; with
+        guard=None every guard hook is skipped. Returns the last score."""
+        guarded = guard is not None and guard.guarded
+        if guarded:
+            self._arm(guard)
+        score = None
+        for _ in range(epochs):
+            if guard is not None:
+                guard.begin_epoch()
+            for batch in batches:
+                if guarded:
+                    score = self._guarded_step(guard, *batch)
+                else:
+                    score = self._train_step(*batch)
+            if guarded:
+                self._observe(guard, score, len(batches))
+            if guard is not None:
+                guard.tick()
+        return score
 
     # ----------------------------------------------------------- inference
     def feed_forward(self, x) -> List[torch.Tensor]:

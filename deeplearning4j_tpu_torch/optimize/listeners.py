@@ -108,9 +108,9 @@ class StepTimeListener(IterationListener):
 
 class GuardianListener(IterationListener):
     """Base for listeners that want guardian events (skips, rollbacks,
-    autosaves, aborts). Any listener exposing `guardian_event` is
-    notified; subclassing this gives the no-op `iteration_done`. The
-    guardian itself is not ported yet (ROADMAP Queue 1 item 5b)."""
+    autosaves, preemption flushes, aborts; optimize/guardian.py). Any
+    listener exposing `guardian_event` is notified; subclassing this
+    gives the no-op `iteration_done`."""
 
     def iteration_done(self, model, iteration: int, score: float) -> None:
         pass
@@ -120,7 +120,7 @@ class GuardianListener(IterationListener):
 
 
 class CollectGuardianEvents(GuardianListener):
-    """Test/diagnostic helper: records every guardian event."""
+    """Test/diagnostic helper: records every GuardianEvent."""
 
     def __init__(self):
         self.events = []
