@@ -147,6 +147,40 @@ prints no result):
                   rollbacks at lr_scale 0.5 and 0.25, then GuardianAbort
                   with the network on its last-good snapshot, the events
                   those of the CPU run.
+16. readers      — BASELINE config 1 fed from a CSV of 8,192
+                  synthetic_mnist rows with an integer label column: the
+                  native library (runtime/native/native.cpp) built under
+                  build/native/ (no numpy fallback); np.loadtxt and the
+                  native read_csv bit-equal to the rows written (rows/s);
+                  CSVDataSetIterator -> AsyncDataSetIterator ->
+                  DeviceFeed -> fit, 2 epochs at batch 4096, params
+                  bit-equal to ListDataSetIterator -> DeviceFeed -> fit;
+                  the async queue's batches/s alone; fit samples/s
+                  through the async path (CSV and in-memory sources) and
+                  the list path; a producer error mid-stream relayed to
+                  fit.
+17. cli          — the command line in-process (cli.main): `train
+                  --batch-size 4096 --epochs 2 --checkpoint-dir` from a
+                  port-written init.ckpt bit-equal to the same fit through
+                  the API; test, predict, eval --json and checkpoint
+                  inspect --json return 0 with the JAX CLI's shapes of
+                  output; 1 epoch then `--resume auto --epochs 2`
+                  bit-equal to the 2-epoch run, its autosaves numbered on;
+                  the attention stack trained and tested through the CLI
+                  with K1-K3 counted; one subprocess `python3 -m
+                  deeplearning4j_tpu_torch.cli test` gives the in-process
+                  metrics. CLI wall time and time to first step.
+18. lstm         — models/lstm.py: card vs CPU in float32 (d 32, T 16,
+                  B 4; activate, loss, gradients of R, Wd, bd, 3 SGD
+                  steps, chunked run_stream; outputs within 1e-5 (the
+                  loss relative), params within 1e-4); then bytes at full
+                  width (n_in = hidden = n_out = 256, T 128, B 64, bf16
+                  products, SGD lr 0.02, 60 steps on "hello world "
+                  read cyclically): the loss halves, chunked run_stream
+                  equals activate, a 5-beam 20-step beam search returns
+                  sorted beams; ms a step by CUDA events, tokens/s,
+                  kernels a step and busy share, ms a beam tick.
+The phases 16-18 write under build/chip_smoke_cli/ and remove it.
 
 Then, at each path's shapes: each kernel's time beside its plain
 version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3;
@@ -154,14 +188,17 @@ the median of 3 separate batches, all three recorded) and its bound, one
 whole prefill, decode step and training step, each profiled; K1, K2 and
 K3 also at the attention stack's shape (B*H 1024, T 28, hd 128, not
 causal). The kernels' launches are counted per path (serve, train,
-multilayer, solver, guardian). The last lines are the card as nvidia-smi gives
-it, the kernels' JSON line (with each kernel's design), and
+multilayer, solver, guardian, cli). The last lines are the card as
+nvidia-smi gives it, the kernels' JSON line (with each kernel's design),
+and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import re
@@ -180,7 +217,8 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch import _build
 from deeplearning4j_tpu_torch.attention import blockwise, flash, paged
 from deeplearning4j_tpu_torch.config import NeuralNetConfiguration
-from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+from deeplearning4j_tpu_torch.datasets import (DataSet, DataSetIterator,
+                                               ListDataSetIterator)
 from deeplearning4j_tpu_torch.datasets.mnist import synthetic_mnist
 from deeplearning4j_tpu_torch.eval import Evaluation
 from deeplearning4j_tpu_torch.models.transformer import (
@@ -2121,6 +2159,480 @@ def phase_guardian(device, seed):
                    and skip["ok"] and persist["ok"])}
 
 
+#: where the readers, cli and lstm phases write (removed afterwards)
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+#: synthetic_mnist rows of the readers / cli phases' CSV (BASELINE
+#: config 1's batch 4096, two batches an epoch)
+READER_ROWS = 8192
+#: rows a batch of the async iterator's queue-only drain, and its epochs
+QUEUE_BATCH, QUEUE_EPOCHS = 1024, 3
+#: the LSTM's card-vs-CPU shapes, limits, and the full-width run: bytes
+#: (n_in = hidden = n_out = 256), T 128, B 64, bf16 products, SGD
+LSTM_PARITY = {"d": 32, "t": 16, "b": 4}
+LSTM_PARITY_TOL = {"outputs": 1e-5, "params": 1e-4}
+LSTM_FULL = {"d": 256, "t": 128, "b": 64, "lr": 0.02, "steps": 60,
+             "beam": 5, "beam_steps": 20}
+#: the reference's LSTMTest trains on "hello world"
+LSTM_PHRASE = b"hello world "
+
+
+def write_mnist_csv(path, seed, rows):
+    """synthetic_mnist rows with an integer label column; `%.9g` gives
+    back every float32 bit for bit."""
+    x, y = synthetic_mnist(rows, seed=seed)
+    np.savetxt(path, np.hstack([x, y.argmax(1)[:, None]]), delimiter=",",
+               fmt="%.9g")
+    return x, y
+
+
+class FailsAfter(DataSetIterator):
+    """A list iterator whose second batch raises (a shard that cannot be
+    read mid-epoch)."""
+
+    def __init__(self, data, batch):
+        self.inner = ListDataSetIterator(data, batch)
+        super().__init__(batch, data.num_examples)
+        self.served = 0
+
+    def input_columns(self):
+        return self.inner.input_columns()
+
+    def total_outcomes(self):
+        return self.inner.total_outcomes()
+
+    def reset(self):
+        self.inner.reset()
+        self.served = 0
+
+    def has_next(self):
+        return self.inner.has_next()
+
+    def next(self, num=None):
+        self.served += 1
+        if self.served == 2:
+            raise OSError("shard 2 of the stream is unreadable")
+        return self.inner.next(num)
+
+
+def phase_readers(device, seed):
+    """BASELINE config 1 fed from a CSV file: the native library built
+    under build/native/; a CSV of READER_ROWS synthetic_mnist rows read
+    by np.loadtxt and by the native read_csv (rows/s; both bit-equal to
+    the rows written); CSVDataSetIterator -> AsyncDataSetIterator ->
+    DeviceFeed -> fit for 2 epochs bit-equal to the same rows through
+    ListDataSetIterator -> DeviceFeed -> fit; the async iterator's
+    batches/s alone; fit samples/s through the async path (CSV source,
+    and in-memory source) against the list path; a producer error raised
+    mid-stream relayed to fit."""
+    from deeplearning4j_tpu_torch.datasets import (AsyncDataSetIterator,
+                                                   CSVDataSetIterator,
+                                                   DeviceFeed)
+    from deeplearning4j_tpu_torch.runtime import native_loader
+
+    lib = native_loader.library_path()
+    native_ok = (native_loader.native_available() and lib is not None
+                 and lib.is_relative_to(native_loader.BUILD_ROOT))
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    csv = CLI_DIR / "mnist.csv"
+    x, y = write_mnist_csv(csv, seed, READER_ROWS)
+    data = np.hstack([x, y.argmax(1)[:, None].astype(np.float32)])
+    loadtxt, loadtxt_ms = timed_ms(
+        lambda: np.loadtxt(csv, delimiter=",", dtype=np.float32, ndmin=2))
+    native, native_ms = timed_ms(lambda: native_loader.read_csv(str(csv)))
+    parse_ok = (np.array_equal(loadtxt, data)
+                and np.array_equal(native, data))
+
+    batch = ML_TRAIN["mlp"][0]
+    net = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    ref = net.clone()
+    async_csv = AsyncDataSetIterator(
+        CSVDataSetIterator(str(csv), batch, num_classes=10))
+    feed = DeviceFeed(async_csv, device=device)
+    _, async_ms = timed_ms(lambda: net.fit(feed, epochs=2))
+    feed.close()
+    _, list_ms = timed_ms(lambda: ref.fit(
+        ListDataSetIterator(DataSet(x, y), batch), epochs=2))
+    diff = bitwise_diff(net, ref)
+
+    mem = net.clone()
+    feed = DeviceFeed(AsyncDataSetIterator(
+        ListDataSetIterator(DataSet(x, y), batch)), device=device)
+    _, async_mem_ms = timed_ms(lambda: mem.fit(feed, epochs=2))
+    feed.close()
+
+    queue = AsyncDataSetIterator(ListDataSetIterator(DataSet(x, y),
+                                                     QUEUE_BATCH))
+    t0 = time.perf_counter()
+    n_queued = 0
+    for _ in range(QUEUE_EPOCHS):
+        queue.reset()
+        for ds in queue:
+            n_queued += 1
+    queue_s = time.perf_counter() - t0
+    queue.close()
+
+    failing = DeviceFeed(AsyncDataSetIterator(
+        FailsAfter(DataSet(x, y), batch // 4)), device=device)
+    try:
+        net.fit(failing)
+        relayed = None
+    except OSError as e:
+        relayed = str(e)
+    failing.close()
+    samples = 2e3 * READER_ROWS  # per ms -> per s
+    return {"card": nvidia_smi(), "rows": READER_ROWS,
+            "native_library": str(lib), "native_ok": native_ok,
+            "csv_bytes": csv.stat().st_size,
+            "rows_per_s": {"np_loadtxt": 1e3 * READER_ROWS / loadtxt_ms,
+                           "native_read_csv": 1e3 * READER_ROWS / native_ms,
+                           "csv_iterator_async": samples / async_ms},
+            "parse_bit_equal": parse_ok,
+            "async_vs_list_bitwise_diff": diff,
+            "fit_samples_per_s": {"async_csv": samples / async_ms,
+                                  "async_memory": samples / async_mem_ms,
+                                  "list": samples / list_ms},
+            "async_queue": {"batch": QUEUE_BATCH, "batches": n_queued,
+                            "batches_per_s": n_queued / queue_s,
+                            "mb_per_s": n_queued * QUEUE_BATCH * 794 * 4
+                            / queue_s / 1e6},
+            "relayed_error": relayed,
+            "ok": (native_ok and parse_ok and not diff
+                   and relayed == "shard 2 of the stream is unreadable"
+                   and n_queued == QUEUE_EPOCHS * READER_ROWS
+                   // QUEUE_BATCH)}
+
+
+def run_cli(argv):
+    """(rc, stdout, seconds) of one in-process CLI call."""
+    from deeplearning4j_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+class FirstStep:
+    """Records when the first training step of a fit returns (the card
+    synchronised): time to first step from the CLI's start."""
+
+    def __enter__(self):
+        self.orig = MultiLayerNetwork._fit_supervised
+        self.at = None
+        orig = self.orig
+
+        def timed(net, *args, **kwargs):
+            out = orig(net, *args, **kwargs)
+            if self.at is None:
+                torch.cuda.synchronize()
+                self.at = time.perf_counter()
+            return out
+
+        MultiLayerNetwork._fit_supervised = timed
+        return self
+
+    def __exit__(self, *exc):
+        MultiLayerNetwork._fit_supervised = self.orig
+
+
+def phase_cli(device, seed):
+    """The command line on the card (python -m deeplearning4j_tpu_torch.cli,
+    in-process): from a port-written init.ckpt of BASELINE config 1,
+    `train --batch-size 4096 --epochs 2 --checkpoint-dir` leaves params
+    bit-equal to the same fit called through the API; test, predict,
+    eval --json and checkpoint inspect --json return 0 with the JAX
+    CLI's shapes of output; 1 epoch then `--resume auto --epochs 2` is
+    bit-equal to the 2-epoch run and extends the autosave numbering; the
+    attention stack trains and tests through the CLI with K1-K3 counted
+    (launches_by_path["cli"]); one subprocess `test` gives the
+    in-process metrics. CLI wall time and time to first step."""
+    from deeplearning4j_tpu_torch.checkpoint import (ShardedModelSaver,
+                                                     list_steps)
+    from deeplearning4j_tpu_torch.cli import _load_csv
+    from deeplearning4j_tpu_torch.scaleout.checkpoint import (
+        DefaultModelSaver, load_checkpoint)
+
+    dev = torch.device(device).type
+    csv = CLI_DIR / "mnist.csv"
+    init = CLI_DIR / "init.ckpt"
+    DefaultModelSaver(str(init)).save(
+        MultiLayerNetwork(mlp_conf("bfloat16"), device=device))
+    batch = ML_TRAIN["mlp"][0]
+    common = ["-i", csv, "-m", init, "--device", dev, "--batch-size", batch]
+    with FirstStep() as first:
+        t0 = time.perf_counter()
+        rc, out, train_s = run_cli(["train", *common, "-o",
+                                    CLI_DIR / "m2.ckpt", "--epochs", 2,
+                                    "--checkpoint-dir", CLI_DIR / "ck2"])
+        first_step_s = first.at - t0 if first.at else None
+    summary = last_json(out) if rc == 0 else None
+    cli_net, _ = load_checkpoint(str(CLI_DIR / "m2.ckpt"), device=device)
+
+    ref, _ = load_checkpoint(str(init), device=device)
+    x, y = _load_csv(str(csv), 1, 10)
+    saver = ShardedModelSaver(str(CLI_DIR / "ck_api"), keep=3)
+    ref.fit(ListDataSetIterator(DataSet(x, y), batch), epochs=2,
+            saver=saver, checkpoint_every=1)
+    saver.close()
+    train_diff = bitwise_diff(cli_net, ref)
+    train_ok = (rc == 0 and not train_diff
+                and sorted(summary) == ["saved", "score"]
+                and list_steps(str(CLI_DIR / "ck2"))
+                == list_steps(str(CLI_DIR / "ck_api")))
+
+    outputs = {}
+    rc_t, out, test_s = run_cli(["test", "-i", csv, "-m",
+                                 CLI_DIR / "m2.ckpt", "--device", dev])
+    metrics = last_json(out) if rc_t == 0 else None
+    outputs["test"] = rc_t == 0 and sorted(metrics) == [
+        "accuracy", "f1", "precision", "recall"]
+    preds = CLI_DIR / "preds.txt"
+    rc_p, out, predict_s = run_cli(["predict", "-i", csv, "-m",
+                                    CLI_DIR / "m2.ckpt", "--device", dev,
+                                    "--label-columns", 1, "-o", preds])
+    ids = np.loadtxt(preds, dtype=np.int64) if rc_p == 0 else None
+    outputs["predict"] = bool(rc_p == 0 and last_json(out) == {
+        "saved": str(preds), "n": READER_ROWS}
+        and ids.shape == (READER_ROWS,) and ids.min() >= 0
+        and ids.max() < 10)
+    rc_e, out, eval_s = run_cli(["eval", "-m", CLI_DIR / "ck2", "--data",
+                                 csv, "--device", dev, "--json"])
+    ev = last_json(out) if rc_e == 0 else None
+    steps2 = list_steps(str(CLI_DIR / "ck2"))
+    outputs["eval"] = (rc_e == 0 and sorted(ev) == sorted(
+        ["f1", "accuracy", "precision", "recall", "n", "path", "step",
+         "eval_seconds"]) and ev["step"] == steps2[-1]
+        and ev["n"] == READER_ROWS)
+    rc_i, out, _ = run_cli(["checkpoint", "inspect", CLI_DIR / "ck2",
+                            "--json"])
+    inspect = last_json(out) if rc_i == 0 else None
+    outputs["inspect"] = (rc_i == 0 and sorted(inspect) == sorted(
+        ["dir", "steps", "step", "saved_at", "mesh", "format_version",
+         "iterator_position", "iteration_count", "metadata",
+         "total_bytes", "n_leaves", "leaves"])
+        and inspect["steps"] == steps2)
+
+    rc1, _, _ = run_cli(["train", *common, "-o", CLI_DIR / "m1.ckpt",
+                         "--epochs", 1, "--checkpoint-dir", CLI_DIR / "ck1"])
+    steps1 = list_steps(str(CLI_DIR / "ck1"))
+    rcr, out, resume_s = run_cli(["train", *common, "-o",
+                                  CLI_DIR / "mr.ckpt", "--epochs", 2,
+                                  "--checkpoint-dir", CLI_DIR / "ck1",
+                                  "--resume", "auto"])
+    lines = [json.loads(s) for s in out.strip().splitlines()] \
+        if rcr == 0 else []
+    resumed, _ = load_checkpoint(str(CLI_DIR / "mr.ckpt"), device=device)
+    steps_after = list_steps(str(CLI_DIR / "ck1"))
+    resume_diff = bitwise_diff(resumed, cli_net)
+    resume_ok = (rc1 == 0 and rcr == 0 and not resume_diff
+                 and lines[0]["step"] == steps1[-1]
+                 and lines[-1]["resumed_from"] == steps1[-1]
+                 and steps_after[-1] > steps1[-1])
+
+    attn = CLI_DIR / "attention.json"
+    attn.write_text(attention_conf("bfloat16").to_json())
+    abatch = ML_TRAIN["attention"][0]
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    rc_a, out_a, attn_s = run_cli(["train", "-i", csv, "-m", attn,
+                                   "--device", dev, "--batch-size", abatch,
+                                   "--epochs", 1, "-o",
+                                   CLI_DIR / "attention.ckpt"])
+    rc_at, out_at, _ = run_cli(["test", "-i", csv, "-m",
+                                CLI_DIR / "attention.ckpt", "--device", dev])
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    n_steps = READER_ROWS // abatch
+    attn_ok = (rc_a == 0 and rc_at == 0
+               and launches["flash_bwd_dq"] == n_steps
+               and launches["flash_bwd_dkv"] == n_steps
+               and launches["flash_fwd"] >= n_steps + 1)
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "test", "-i",
+         str(csv), "-m", str(CLI_DIR / "m2.ckpt"), "--device", dev],
+        capture_output=True, text=True, timeout=600, env=env,
+        cwd=str(Path(__file__).resolve().parent))
+    sub_s = time.perf_counter() - t0
+    sub_ok = sub.returncode == 0 and last_json(sub.stdout) == metrics
+    return {"card": nvidia_smi(), "batch": batch, "rows": READER_ROWS,
+            "train": {"summary": summary, "bitwise_diff_api": train_diff,
+                      "wall_s": train_s,
+                      "time_to_first_step_s": first_step_s,
+                      "steps": list_steps(str(CLI_DIR / "ck2"))},
+            "metrics": metrics, "eval": ev, "outputs_ok": outputs,
+            "wall_s": {"test": test_s, "predict": predict_s,
+                       "eval": eval_s, "resume": resume_s,
+                       "attention_train": attn_s,
+                       "subprocess_test": sub_s},
+            "resume": {"steps_first": steps1, "steps_after": steps_after,
+                       "lines": lines,
+                       "bitwise_diff_2_epochs": resume_diff},
+            "attention": {"summary": last_json(out_a) if rc_a == 0
+                          else None,
+                          "metrics": last_json(out_at) if rc_at == 0
+                          else None, "steps": n_steps},
+            "subprocess": {"rc": sub.returncode, "same_metrics": sub_ok,
+                           "stderr_tail": sub.stderr[-400:]},
+            "launches": launches,
+            "ok": (train_ok and all(outputs.values()) and resume_ok
+                   and attn_ok and sub_ok)}
+
+
+def lstm_conf(d, compute_dtype):
+    return NeuralNetConfiguration(layer="lstm", n_in=d, n_out=d,
+                                  activation_function="tanh",
+                                  loss_function="mcxent",
+                                  compute_dtype=compute_dtype)
+
+
+def lstm_bytes(seed, b, t, d):
+    """(x, y): one-hot bytes (mod d) of LSTM_PHRASE read cyclically from
+    a random offset per row, y the next byte (cyclic_tokens' manner)."""
+    phrase = np.frombuffer(LSTM_PHRASE, np.uint8).astype(np.int64) % d
+    off = np.random.RandomState(seed).randint(0, len(phrase), (b, 1))
+    idx = phrase[(off + np.arange(t + 1)[None, :]) % len(phrase)]
+    eye = np.eye(d, dtype=np.float32)
+    return (torch.from_numpy(eye[idx[:, :-1]]),
+            torch.from_numpy(eye[idx[:, 1:]]))
+
+
+def lstm_sgd_step(layer, params, x, y, lr):
+    loss = layer.loss(params, x, y)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    with torch.no_grad():
+        torch._foreach_add_(list(params.values()), list(grads), alpha=-lr)
+    return loss.detach()
+
+
+def lstm_parity(device, seed):
+    """Card vs CPU in float32 at LSTM_PARITY: activate, loss, the
+    gradients of R, Wd and bd, 3 SGD steps, and run_stream in chunks with
+    a carry."""
+    from deeplearning4j_tpu_torch.nn.layers import make_layer
+
+    d, t, b = LSTM_PARITY["d"], LSTM_PARITY["t"], LSTM_PARITY["b"]
+    layers_ = {dev: make_layer(lstm_conf(d, "float32"), device=dev)
+               for dev in (device, "cpu")}
+    layers_["cpu"].init_params(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, p in layers_[device].param_dict().items():
+            p.copy_(layers_["cpu"].param_dict()[name])
+    x, y = lstm_bytes(seed, b, t, d)
+    x = x + 0.1 * torch.randn(x.shape, generator=torch.Generator()
+                              .manual_seed(seed))
+    res = {}
+    for dev, layer in layers_.items():
+        params = layer.param_dict()
+        xd, yd = x.to(dev), y.to(dev)
+        out = layer.activate(params, xd).detach().cpu()
+        loss = layer.loss(params, xd, yd)
+        grads = [g.cpu() for g in torch.autograd.grad(
+            loss, list(params.values()))]
+        chunks = []
+        carry = None
+        for lo in range(0, t, 5):
+            o, carry = layer.run_stream(params, xd[:, lo:lo + 5], carry)
+            chunks.append(o.cpu())
+        for _ in range(3):
+            lstm_sgd_step(layer, params, xd, yd, 0.1)
+        res[dev] = {"out": out, "loss": loss.detach().cpu(),
+                    "grads": grads, "stream": torch.cat(chunks, 1),
+                    "params": [p.detach().cpu() for p in params.values()]}
+    card, cpu = res[device], res["cpu"]
+    errs = {"activate": max_err(card["out"], cpu["out"]),
+            "loss_rel": max_err(card["loss"], cpu["loss"])
+            / float(cpu["loss"].abs()),
+            "grads": max(max_err(g, w) for g, w in zip(card["grads"],
+                                                      cpu["grads"])),
+            "run_stream": max_err(card["stream"], cpu["stream"]),
+            "stream_vs_activate": max_err(card["stream"], card["out"]),
+            "params_3_steps": max(max_err(g, w) for g, w in
+                                  zip(card["params"], cpu["params"]))}
+    tol = LSTM_PARITY_TOL
+    ok = (max(errs["activate"], errs["loss_rel"], errs["run_stream"],
+              errs["stream_vs_activate"]) <= tol["outputs"]
+          and max(errs["grads"], errs["params_3_steps"]) <= tol["params"])
+    return {"shape": LSTM_PARITY, "max_abs_err": errs, "tolerance": tol,
+            "ok": ok}
+
+
+def lstm_full(device, seed):
+    """Bytes at full width (LSTM_FULL), bf16 products, SGD: the loss
+    halves; chunked run_stream equals activate; a 5-beam, 20-step beam
+    search returns sorted beams. ms a step by CUDA events, tokens/s,
+    kernels a step and the busy share, ms a beam tick."""
+    from deeplearning4j_tpu_torch.nn.layers import make_layer
+
+    cfg = LSTM_FULL
+    d, t, b = cfg["d"], cfg["t"], cfg["b"]
+    layer = make_layer(lstm_conf(d, "bfloat16"), device=device)
+    layer.init_params(torch.Generator().manual_seed(seed))
+    params = layer.param_dict()
+    x, y = (a.to(device) for a in lstm_bytes(seed + 1, b, t, d))
+    losses = []
+    step_ms = []
+    for _ in range(cfg["steps"]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(lstm_sgd_step(layer, params, x, y, cfg["lr"]))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    losses = [float(v) / t for v in losses]  # per-step cross entropy
+    steady = sorted(step_ms[2:])
+    p50 = steady[len(steady) // 2]
+    profile = device_profile(
+        lambda: lstm_sgd_step(layer, params, x, y, cfg["lr"]), 2, ML_GROUPS)
+
+    full = layer.activate(params, x).detach()
+    chunks, carry = [], None
+    for lo in range(0, t, 32):
+        o, carry = layer.run_stream(params, x[:, lo:lo + 32], carry)
+        chunks.append(o)
+    stream_err = max_err(torch.cat(chunks, 1), full)
+
+    ws = torch.eye(d, device=device)
+    start_byte = LSTM_PHRASE[0]
+    beams, beam_ms = timed_ms(lambda: layer.predict(
+        params, ws[start_byte], ws, beam_size=cfg["beam"],
+        n_steps=cfg["beam_steps"]))
+    ticks = 1 + cfg["beam"] * (cfg["beam_steps"] - 1)
+    logps = [lp for _, lp in beams]
+    beams_ok = (len(beams) == cfg["beam"] and logps == sorted(logps,
+                                                              reverse=True)
+                and all(0 <= tok < d for s, _ in beams for tok in s))
+    finite = all(np.isfinite(losses))
+    return {"config": cfg, "loss_first": losses[0], "loss_last": losses[-1],
+            "losses": losses[::5] + [losses[-1]],
+            "ms_per_step_p50": p50, "ms_per_step": step_ms,
+            "tokens_per_s": b * t / (p50 / 1e3),
+            "step_profile": profile,
+            "run_stream_vs_activate_max_abs_err": stream_err,
+            "beams": [(s, lp) for s, lp in beams],
+            "beam_ms_per_tick": beam_ms / ticks,
+            "ok": (finite and losses[-1] < 0.5 * losses[0]
+                   and stream_err <= LSTM_PARITY_TOL["outputs"]
+                   and beams_ok)}
+
+
+def phase_lstm(device, seed):
+    """The LSTM (models/lstm.py): card vs CPU in float32, then the byte
+    model at full width."""
+    parity = lstm_parity(device, seed)
+    full = lstm_full(device, seed)
+    return {"card": nvidia_smi(), "parity": parity, "full": full,
+            "ok": parity["ok"] and full["ok"]}
+
+
 def device_profile(fn, iters: int, groups=None) -> dict:
     """Device time by kernel over `iters` calls (torch.profiler, CUDA
     activity only counted from kernel events), and the device's busy
@@ -2331,12 +2843,16 @@ def main(argv=None) -> int:
     ml_train["kernel_timing_seconds"] = time.perf_counter() - t0
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
     for name, fn in (("solver_parity", phase_solver_parity),
                      ("dbn", phase_dbn),
                      ("solver_attention", phase_solver_attention),
                      ("checkpoint", phase_checkpoint),
                      ("resume", phase_resume),
-                     ("guardian", phase_guardian)):
+                     ("guardian", phase_guardian),
+                     ("readers", phase_readers),
+                     ("cli", phase_cli),
+                     ("lstm", phase_lstm)):
         t0 = time.perf_counter()
         res = fn(device, args.seed)
         res["seconds"] = time.perf_counter() - t0
@@ -2345,6 +2861,7 @@ def main(argv=None) -> int:
         if not res["ok"]:
             raise AssertionError(f"{name} failed: {res}")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
 
     k1, k4 = kernels
     k1["launches_by_path"] = {"serve": k1["launches"],
@@ -2358,6 +2875,8 @@ def main(argv=None) -> int:
             record["solver_attention"]["launches"][row["name"]]
         row["launches_by_path"]["guardian"] = \
             record["guardian"]["launches"][row["name"]]
+        row["launches_by_path"]["cli"] = \
+            record["cli"]["launches"][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
         row["multilayer_shape"] = ml_shape[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"],

@@ -1,0 +1,931 @@
+"""CLI of the port: train / test / predict / eval / checkpoint, the
+counterpart of the JAX package's `cli.py`.
+
+Parity: reference deeplearning4j-cli — args4j subcommands `Train`/`Test`/
+`Predict` with --input/--model/--output flags (cli/subcommands/Train.java:31
+— whose `exec()` is an EMPTY STUB :46; this implementation does what it
+advertised) and the URI-scheme input dispatch of cli/api/flags/Input.java
+(here: .csv vs .ckpt vs .npz by extension).
+
+Usage (CLI = `python -m deeplearning4j_tpu_torch.cli`):
+    CLI train   -i data.csv -m conf.json -o model.ckpt
+    CLI train   ... --batch-size 50 --checkpoint-dir ckpts/
+    CLI train   ... --batch-size 50 --checkpoint-dir ckpts/ --resume auto
+    CLI test    -i data.csv -m model.ckpt
+    CLI predict -i data.csv -m model.ckpt -o preds.csv
+    CLI eval    -m ckpts/ --data heldout.csv --json
+    CLI checkpoint inspect ckpts/
+
+`-m` accepts a conf .json (fresh net), a single-file .ckpt, or a sharded
+checkpoint DIRECTORY for train/test/predict/eval. Checkpoints cross
+between this CLI and the JAX package's both ways.
+
+Device: `train`, `test`, `predict` and `eval` take `--device cuda|cpu`
+(default cuda, the counterpart of pointing the JAX CLI at a platform).
+With `cuda` and no CUDA device the command prints "no CUDA device" and
+exits 2; it never carries on on the CPU. `checkpoint inspect` reads
+manifests only and needs no device.
+
+The parser takes every subcommand and flag of the JAX CLI, so an argv
+written for it parses. What is not ported yet (`serve`, `fleet`,
+`watchdog`, `batch`, `pipeline`, and train's `--elastic`,
+`--metrics-port`, `--trace`, `--compile-cache`) prints the ROADMAP item
+that brings it and exits 2 before doing anything.
+
+Input CSV: one row per example, features then (for train/test) one-hot or
+integer label in the last column(s) — controlled by --label-columns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+#: subcommands of the JAX CLI that this port has not taken yet
+NOT_PORTED = {
+    "serve": "ROADMAP Queue 1 item 10 (10g: the HTTP server)",
+    "fleet": "ROADMAP Queue 1 item 11 (fleet and router)",
+    "watchdog": "ROADMAP Queue 1 item 14 (control plane)",
+    "batch": "ROADMAP Queue 1 item 10 (10d: SLO tiers and the batch "
+             "client)",
+    "pipeline": "ROADMAP Queue 1 item 11 (deploy/controller.py)",
+}
+
+#: train flags of the JAX CLI that this port has not taken yet:
+#: (args attribute, flag) -> ROADMAP item
+FLAGS_NOT_PORTED = {
+    ("elastic", "--elastic"): "ROADMAP Queue 1 item 14 (scaleout/: the "
+                              "elastic supervisor)",
+    ("metrics_port", "--metrics-port"): "ROADMAP Queue 1 item 14 "
+                                        "(telemetry/)",
+    ("trace", "--trace"): "ROADMAP Queue 1 item 14 (telemetry/)",
+    ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14 "
+                                          "(compilecache/)",
+}
+
+
+def _load_csv(path: str, label_columns: int,
+              n_classes: Optional[int] = None
+              ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    data = np.loadtxt(path, delimiter=",", dtype=np.float32, ndmin=2)
+    if label_columns <= 0:
+        return data, None
+    x = data[:, :-label_columns]
+    y = data[:, -label_columns:]
+    if label_columns == 1:  # integer class column -> one-hot
+        labels = y.astype(int).ravel()
+        # class count comes from the MODEL (n_out), not the data — a file
+        # missing the top class must not shrink the label width
+        classes = n_classes if n_classes else int(labels.max()) + 1
+        if labels.max() >= classes:
+            raise ValueError(
+                f"label {labels.max()} out of range for model with "
+                f"{classes} output classes")
+        y = np.eye(classes, dtype=np.float32)[labels]
+    return x, y
+
+
+def _device(args) -> Optional[torch.device]:
+    """The device `--device` names, or None after printing why there is
+    none (the caller exits 2)."""
+    if args.device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        print("no CUDA device is available; pass --device cpu to run on "
+              "the CPU", file=sys.stderr)
+        return None
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _load_model(path: str, device):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.scaleout.checkpoint import load_checkpoint
+
+    if path.endswith(".json") and not os.path.isdir(path):
+        with open(path) as f:  # fresh net from conf JSON
+            return MultiLayerNetwork.from_config_json(f.read(),
+                                                      device=device)
+    # load_checkpoint dispatches: npz file OR sharded checkpoint dir
+    net, _ = load_checkpoint(path, device=device)
+    return net
+
+
+def _model_n_out(net) -> Optional[int]:
+    try:
+        return net.conf.confs[-1].n_out or None
+    except (AttributeError, IndexError):
+        return None
+
+
+def _not_ported(name: str):
+    def refuse(args) -> int:
+        print(f"`{name}` is not ported to deeplearning4j_tpu_torch yet: "
+              f"{NOT_PORTED[name]}", file=sys.stderr)
+        return 2
+
+    return refuse
+
+
+def _refused_flag(args) -> bool:
+    """Print and return True when a flag that is not ported was given."""
+    for (attr, flag), item in FLAGS_NOT_PORTED.items():
+        if getattr(args, attr, None) is not None:
+            print(f"{flag} is not ported to deeplearning4j_tpu_torch yet: "
+                  f"{item}", file=sys.stderr)
+            return True
+    return False
+
+
+def cmd_train(args) -> int:
+    from deeplearning4j_tpu_torch.scaleout.checkpoint import \
+        DefaultModelSaver
+
+    if _refused_flag(args):
+        return 2
+    if args.checkpoint_every is not None and not args.checkpoint_dir:
+        # refusing beats a run the user believes is checkpointed
+        print("--checkpoint-every needs --checkpoint-dir DIR "
+              "(where the autosaves go)", file=sys.stderr)
+        return 2
+    device = _device(args)
+    if device is None:
+        return 2
+    resume_info = None
+    if args.resume:
+        net, resume_info = _resume_network(args, device)
+        if net is None:
+            return 2
+    else:
+        net = _load_model(args.model, device)
+    x, y = _load_csv(args.input, args.label_columns, _model_n_out(net))
+    if y is None:
+        print("train requires labels (--label-columns >= 1)",
+              file=sys.stderr)
+        return 2
+    saver = None
+    if args.checkpoint_dir:
+        # sharded async autosaves off the hot path
+        from deeplearning4j_tpu_torch.checkpoint import ShardedModelSaver
+
+        saver = ShardedModelSaver(args.checkpoint_dir,
+                                  keep=args.checkpoint_keep)
+    try:
+        every = (args.checkpoint_every or 1
+                 if saver is not None else None)
+        if resume_info is not None:
+            _fit_resumed(net, x, y, args, saver, resume_info)
+        elif args.batch_size:
+            # iterator path: the checkpoint cursor counts these
+            # mini-batches, which is what --resume fast-forwards to
+            from deeplearning4j_tpu_torch.datasets import (
+                DataSet, ListDataSetIterator)
+
+            net.fit(ListDataSetIterator(DataSet(x, y), args.batch_size),
+                    epochs=args.epochs, saver=saver, checkpoint_every=every)
+        else:
+            net.fit(x, y, epochs=args.epochs, saver=saver,
+                    checkpoint_every=every)
+    finally:
+        if saver is not None:
+            saver.close()  # every pending autosave is durable
+    DefaultModelSaver(args.output).save(net)
+    score = float(net.score(x, y))
+    summary = {"saved": args.output, "score": score}
+    if resume_info is not None:
+        summary["resumed_from"] = resume_info["step"]
+    print(json.dumps(summary))
+    return 0
+
+
+def _resume_network(args, device):
+    """`--resume auto` (or an explicit path): restore params + updater
+    state + cursor from the newest COMMITTED step — no step dir named.
+    `auto` on an EMPTY checkpoint dir starts fresh (the restart-wrapper
+    semantic); a dir holding only torn saves still errors, listing the
+    candidate step dirs. Returns (net, info), (net, None) for a fresh
+    `auto` start, or (None, None) after printing the error."""
+    from deeplearning4j_tpu_torch.checkpoint.format import CheckpointError
+    from deeplearning4j_tpu_torch.checkpoint.restore import (
+        discover_latest, restore_network)
+
+    source = args.checkpoint_dir if args.resume == "auto" else args.resume
+    if not source:
+        print("--resume auto needs --checkpoint-dir DIR to discover "
+              "the latest committed step from", file=sys.stderr)
+        return None, None
+    try:
+        root, step = discover_latest(source)
+        net, info = restore_network(root, step, device=device)
+    except (CheckpointError, FileNotFoundError) as e:
+        if args.resume == "auto" and "no sharded checkpoint steps" \
+                in str(e):
+            # nothing saved yet: auto means "resume IF any" — a restart
+            # wrapper's first launch starts fresh
+            print(json.dumps({"resuming": None,
+                              "note": "no committed checkpoint yet; "
+                                      "starting fresh"}), flush=True)
+            return _load_model(args.model, device), None
+        print(f"cannot resume: {e}", file=sys.stderr)
+        return None, None
+    print(json.dumps({"resuming": root, "step": step,
+                      "iterator_position": info.get("iterator_position"),
+                      "epoch": info.get("metadata", {}).get("epoch")}),
+          flush=True)
+    return net, info
+
+
+def _fit_resumed(net, x, y, args, saver, info) -> None:
+    """Continue a restored run: fast-forward the data stream to the
+    checkpoint's within-epoch cursor and seed the guard's position so
+    new autosaves extend — never collide with — the committed steps."""
+    from deeplearning4j_tpu_torch.datasets import (DataSet, DeviceFeed,
+                                                   ListDataSetIterator)
+
+    position = int(info.get("iterator_position") or 0)
+    meta = info.get("metadata", {}) or {}
+    epoch = int(meta.get("epoch") or 0)
+    epoch_batch = int(meta.get("epoch_batch") or 0)
+    bs = args.batch_size or len(x)
+    feed = DeviceFeed(ListDataSetIterator(DataSet(x, y), bs),
+                      device=net.device)
+    feed.fast_forward(epoch_batch)
+    remaining = max(1, args.epochs - epoch)
+    net.fit(feed, epochs=remaining, saver=saver,
+            checkpoint_every=(args.checkpoint_every or 1
+                              if saver is not None else None),
+            start_position=position, start_epoch=epoch,
+            start_epoch_batch=epoch_batch)
+
+
+def cmd_test(args) -> int:
+    from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+    device = _device(args)
+    if device is None:
+        return 2
+    net = _load_model(args.model, device)
+    x, y = _load_csv(args.input, args.label_columns, _model_n_out(net))
+    if y is None:
+        print("test requires labels (--label-columns >= 1)", file=sys.stderr)
+        return 2
+    ev = Evaluation()
+    ev.eval(y, net.output(x))
+    print(ev.stats())
+    print(json.dumps({"f1": ev.f1(), "accuracy": ev.accuracy(),
+                      "precision": ev.precision(), "recall": ev.recall()}))
+    return 0
+
+
+def cmd_predict(args) -> int:
+    device = _device(args)
+    if device is None:
+        return 2
+    # default 0: predict input is normally features-only; pass
+    # --label-columns 1 to reuse a labelled train/test CSV
+    x, _ = _load_csv(args.input, args.label_columns)
+    net = _load_model(args.model, device)
+    n_in = net.conf.confs[0].n_in
+    if n_in and x.shape[1] != n_in:
+        print(f"input has {x.shape[1]} feature columns but the model "
+              f"expects {n_in}; use --label-columns to drop trailing "
+              f"label column(s)", file=sys.stderr)
+        return 2
+    preds = net.predict(x)
+    if args.output:
+        np.savetxt(args.output, preds, fmt="%d")
+        print(json.dumps({"saved": args.output, "n": int(preds.shape[0])}))
+    else:
+        for p in preds:
+            print(int(p))
+    return 0
+
+
+def cmd_checkpoint(args) -> int:
+    """`checkpoint inspect <dir>`: print the sharded-checkpoint manifest
+    — committed steps, source mesh/strategy, cursor, and the per-leaf
+    layout (dtype/global shape/shards/bytes)."""
+    from deeplearning4j_tpu_torch.checkpoint import (leaf_summary,
+                                                     list_steps,
+                                                     read_manifest,
+                                                     tree_scalars)
+    from deeplearning4j_tpu_torch.checkpoint.restore import resolve_root
+
+    if args.action != "inspect":  # argparse choices already guard this
+        print(f"unknown checkpoint action {args.action!r}", file=sys.stderr)
+        return 2
+    root, pinned = resolve_root(args.dir)  # root OR one step dir
+    steps = list_steps(root)
+    if not steps:
+        print(f"no committed sharded checkpoint under {args.dir!r}",
+              file=sys.stderr)
+        return 2
+    step = args.step if args.step is not None else pinned
+    manifest = read_manifest(root, step)
+    # scalars only — inspect must stay O(manifest), never read shards
+    payload = tree_scalars(manifest)
+    leaves = leaf_summary(manifest)
+    out = {
+        "dir": root,
+        "steps": steps,
+        "step": manifest["step"],
+        "saved_at": manifest.get("saved_at"),
+        "mesh": manifest.get("mesh"),
+        "format_version": payload.get("format_version"),
+        "iterator_position": payload.get("iterator_position"),
+        "iteration_count": payload.get("iteration_count"),
+        "metadata": {k: v for k, v in payload.get("metadata", {}).items()
+                     if isinstance(v, (str, int, float, bool, type(None)))},
+        "total_bytes": manifest.get("total_bytes"),
+        "n_leaves": len(leaves),
+    }
+    if args.json:
+        out["leaves"] = [{**row, "shape": list(row["shape"])}
+                         for row in leaves]
+        print(json.dumps(out))
+        return 0
+    print(json.dumps(out, indent=2))
+    print(f"{'leaf':40s} {'dtype':10s} {'shape':18s} {'shards':>6s} "
+          f"{'bytes':>12s}")
+    for row in leaves:
+        print(f"{row['leaf']:40s} {row['dtype']:10s} "
+              f"{str(row['shape']):18s} {row['shards']:>6d} "
+              f"{row['bytes']:>12d}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """`eval`: one-shot held-out evaluation of a checkpoint, printing
+    the same metrics JSON shape as `test` plus the checkpoint's
+    identity."""
+    from deeplearning4j_tpu_torch.eval.holdout import evaluate_checkpoint
+
+    device = _device(args)
+    if device is None:
+        return 2
+    try:
+        out = evaluate_checkpoint(args.model, args.data,
+                                  label_columns=args.label_columns,
+                                  step=args.step, device=device)
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        print(f"eval failed: {exc}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(out))
+    else:
+        print(json.dumps(out, indent=2))
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="deeplearning4j_tpu_torch",
+        description="deeplearning4j on PyTorch / CUDA: "
+                    "train/test/predict")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    def device_flag(p):
+        p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                       help="where the network runs (default: the CUDA "
+                            "device; exits 2 without one)")
+
+    def common(p, output_required):
+        device_flag(p)
+        p.add_argument("--input", "-i", required=True, help="input CSV")
+        p.add_argument("--model", "-m", required=True,
+                       help="conf .json (fresh net), .ckpt checkpoint, or "
+                            "sharded checkpoint dir")
+        p.add_argument("--label-columns", type=int, default=1,
+                       help="trailing label columns (1 = integer class)")
+        if output_required is not None:
+            p.add_argument("--output", "-o", required=output_required,
+                           help="output path")
+
+    def telemetry_flags(p):
+        p.add_argument("--metrics-port", type=int, default=None,
+                       help="start a standalone Prometheus /metrics "
+                            "endpoint on this port (0 = auto-assign)")
+        p.add_argument("--trace", default=None, metavar="PATH",
+                       help="record host spans; write Chrome-trace JSON "
+                            "here on exit (docs/OBSERVABILITY.md)")
+
+    p_train = sub.add_parser("train", help="fit a model and checkpoint it")
+    common(p_train, True)
+    p_train.add_argument("--epochs", type=int, default=1)
+    p_train.add_argument("--batch-size", type=int, default=None,
+                         help="mini-batch size (train through the "
+                              "device-feed iterator path; required for "
+                              "a mid-epoch --resume to line its cursor "
+                              "up, and the elastic job split unit)")
+    p_train.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                         help="write sharded async autosaves here during "
+                              "the fit (docs/CHECKPOINTS.md); restorable "
+                              "on any topology via -m DIR")
+    p_train.add_argument("--checkpoint-every", type=int, default=None,
+                         metavar="N",
+                         help="autosave cadence in fit ticks (requires "
+                              "--checkpoint-dir; default 1 when the dir "
+                              "is set)")
+    p_train.add_argument("--checkpoint-keep", type=int, default=3,
+                         metavar="N",
+                         help="committed steps to retain under "
+                              "--checkpoint-dir (older steps are "
+                              "pruned); raise it when a deployment "
+                              "controller (`pipeline`) eval-gates the "
+                              "steps so candidates outlive the "
+                              "eval+canary window")
+    p_train.add_argument("--resume", default=None, metavar="auto|PATH",
+                         help="resume from a sharded checkpoint: 'auto' "
+                              "discovers the latest COMMITTED step under "
+                              "--checkpoint-dir (no step dir named); a "
+                              "path pins a root or step dir. Restores "
+                              "params + updater state + cursor "
+                              "(docs/FAULT_TOLERANCE.md)")
+    p_train.add_argument("--elastic", type=int, default=None, metavar="N",
+                         help="self-healing elastic training across N "
+                              "out-of-process workers (supervisor with "
+                              "failure detection, bounded respawn, "
+                              "straggler defense, elastic resume — "
+                              "docs/FAULT_TOLERANCE.md)")
+    p_train.add_argument("--max-respawns", type=int, default=3,
+                         help="total replacement workers the elastic "
+                              "supervisor may spawn before declaring "
+                              "capacity durably lost (then: resharded "
+                              "resume on the survivors)")
+    p_train.add_argument("--straggler-factor", type=float, default=4.0,
+                         help="evict-and-respawn a worker persistently "
+                              "slower than the wave median by this "
+                              "factor")
+    p_train.add_argument("--status-port", type=int, default=None,
+                         help="elastic: serve the supervisor's "
+                              "status/healthz/metrics endpoint on this "
+                              "port (0 = auto-assign)")
+    p_train.add_argument("--run-timeout", type=float, default=3600.0,
+                         help="elastic: overall run deadline in seconds")
+    p_train.add_argument("--state-dir", default=None, metavar="DIR",
+                         help="elastic: crash-safe control plane — "
+                              "journal supervisor membership here "
+                              "(supervisor.journal) so a restarted "
+                              "supervisor (see `watchdog`) re-adopts "
+                              "its surviving workers warm instead of "
+                              "respawning them "
+                              "(docs/FAULT_TOLERANCE.md)")
+    p_train.add_argument("--compile-cache", default=None,
+                         metavar="DIR|auto|off",
+                         help="persistent AOT program cache for the "
+                              "jitted train/eval steps; `auto` "
+                              "co-locates with --checkpoint-dir "
+                              "(docs/WARMUP.md). Elastic workers "
+                              "inherit it through the spawner env")
+    telemetry_flags(p_train)
+    p_train.set_defaults(fn=cmd_train)
+
+    p_test = sub.add_parser("test", help="evaluate a model")
+    common(p_test, None)
+    p_test.set_defaults(fn=cmd_test)
+
+    p_pred = sub.add_parser("predict", help="emit class predictions")
+    common(p_pred, False)
+    p_pred.set_defaults(fn=cmd_predict, label_columns=0)
+
+    p_ckpt = sub.add_parser(
+        "checkpoint",
+        help="inspect sharded checkpoints (docs/CHECKPOINTS.md)")
+    p_ckpt.add_argument("action", choices=["inspect"],
+                        help="inspect: print a checkpoint's manifest")
+    p_ckpt.add_argument("dir", help="checkpoint root (or one step dir)")
+    p_ckpt.add_argument("--step", type=int, default=None,
+                        help="inspect this step (default: latest committed)")
+    p_ckpt.add_argument("--json", action="store_true",
+                        help="single-line machine-readable output incl. "
+                             "the full leaf table")
+    p_ckpt.set_defaults(fn=cmd_checkpoint)
+
+    p_serve = sub.add_parser(
+        "serve", help="serve a model over HTTP (docs/SERVING.md)")
+    p_serve.add_argument("--model", "-m", required=True,
+                         help="conf .json (fresh net), .ckpt checkpoint, "
+                              "or sharded checkpoint dir")
+    p_serve.add_argument("--host", default="127.0.0.1")
+    p_serve.add_argument("--port", type=int, default=0,
+                         help="0 = auto-assign (printed on start)")
+    p_serve.add_argument("--replicas", type=int, default=None,
+                         help="device replicas (default: all local)")
+    p_serve.add_argument("--max-batch-size", type=int, default=64,
+                         help="micro-batcher coalescing cap / top bucket")
+    p_serve.add_argument("--max-delay-ms", type=float, default=2.0,
+                         help="micro-batcher coalescing window")
+    p_serve.add_argument("--slots", type=int, default=8,
+                         help="continuous-batching decode slots for "
+                              "/generate (docs/SERVING.md)")
+    p_serve.add_argument("--page-size", type=int, default=16,
+                         help="KV page size in tokens for the paged "
+                              "decode pool")
+    p_serve.add_argument("--prefix-cache",
+                         action=argparse.BooleanOptionalAction,
+                         default=True,
+                         help="cross-request KV prefix sharing in the "
+                              "decode pool (--no-prefix-cache disables; "
+                              "docs/SERVING.md)")
+    p_serve.add_argument("--fleet-kv", default="on",
+                         choices=("on", "affinity-only", "off"),
+                         help="this replica's half of the fleet KV "
+                              "plane: `on` publishes the affinity "
+                              "summary on /readyz AND serves "
+                              "/kv/export + fetches from donors, "
+                              "`affinity-only` publishes but never "
+                              "ships pages, `off` disables both "
+                              "(docs/FLEET.md \"Fleet KV plane\")")
+    p_serve.add_argument("--kv-ship-timeout", type=float, default=2.0,
+                         metavar="S",
+                         help="budget for one donor page fetch + "
+                              "install (seconds; request deadlines "
+                              "cap it further). Raise it when donors "
+                              "run compute-starved — expiry just "
+                              "falls back to plain prefill "
+                              "(docs/FLEET.md \"Fleet KV plane\")")
+    p_serve.add_argument("--decode-kernel", default="auto",
+                         choices=("auto", "pallas", "gather"),
+                         help="decode attention lane: pallas streams "
+                              "written KV pages from the pool (TPU), "
+                              "gather materializes the dense window; "
+                              "auto picks pallas on TPU inside its "
+                              "envelope (docs/SERVING.md)")
+    p_serve.add_argument("--transformer", default=None, metavar="SPEC",
+                         help="enable /generate from a deterministically "
+                              "initialized transformer: SPEC is a JSON "
+                              "object (inline or a file path) of "
+                              "TransformerConfig fields plus an optional "
+                              "\"seed\" — every process given the same "
+                              "SPEC serves bit-identical weights, which "
+                              "is how fleet stream-failover drills get "
+                              "interchangeable replicas (docs/FLEET.md)")
+    p_serve.add_argument("--kv-pages", type=int, default=None,
+                         help="size of the paged KV pool in pages "
+                              "(default: slots * ceil(max_len / "
+                              "page_size))")
+    p_serve.add_argument("--horizon", type=int, default=1,
+                         help="decode steps chained per dispatch "
+                              "(docs/SERVING.md; mutually exclusive "
+                              "with --speculation)")
+    p_serve.add_argument("--speculation", type=int, default=0,
+                         help="speculative decoding draft depth k "
+                              "(0 = off): a drafter proposes k tokens "
+                              "per slot and ONE widened verify step "
+                              "accepts the longest target-matching "
+                              "prefix — output stays bit-identical "
+                              "(docs/SERVING.md)")
+    p_serve.add_argument("--drafter", default="ngram",
+                         choices=("ngram", "model"),
+                         help="speculative drafter flavor: ngram = "
+                              "zero-weight prompt lookup fed by the "
+                              "prefix cache; model = a small draft "
+                              "transformer (--draft-model)")
+    p_serve.add_argument("--draft-model", default=None, metavar="SPEC",
+                         help="draft transformer for --drafter model: "
+                              "same JSON SPEC contract as "
+                              "--transformer (TransformerConfig fields "
+                              "+ \"seed\"); its vocab must match the "
+                              "serving model's")
+    p_serve.add_argument("--draft-window", type=int, default=32,
+                         help="token window the draft model conditions "
+                              "on (right-aligned slice of each slot's "
+                              "history)")
+    p_serve.add_argument("--no-warmup", dest="warmup",
+                         action="store_false",
+                         help="skip precompiling the bucket programs")
+    p_serve.add_argument("--warmup-async", action="store_true",
+                         help="open the socket first and warm up on a "
+                              "background thread; /readyz answers 503 "
+                              "until the precompile lands (how fleet "
+                              "replicas hide spin-up, docs/FLEET.md)")
+    p_serve.add_argument("--max-queue", type=int, default=None,
+                         help="bound the /predict coalescing queue; "
+                              "past it requests shed with 503 + "
+                              "Retry-After")
+    p_serve.add_argument("--batch-share", type=float, default=0.5,
+                         help="weighted-fair fraction of decode slots "
+                              "the batch SLO tier may hold while "
+                              "interactive requests wait — interactive "
+                              "preempts batch slots past it, losslessly "
+                              "(docs/SERVING.md \"Priority tiers\")")
+    p_serve.add_argument("--compile-cache", default=None,
+                         metavar="DIR|auto|off",
+                         help="persistent AOT program cache: warm "
+                              "boots load serialized executables "
+                              "instead of recompiling (docs/WARMUP.md)."
+                              " `auto` co-locates with a model/"
+                              "checkpoint DIR; unset still inherits "
+                              "DL4J_TPU_COMPILE_CACHE from a spawner")
+    p_serve.add_argument("--warmup-plan", default="auto",
+                         metavar="auto|off|PATH",
+                         help="warmup plan to replay at boot (the "
+                              "program set a previous replica compiled)"
+                              " and to record at shutdown; `auto` "
+                              "stores it inside the compile cache, "
+                              "`off` disables plan replay/recording")
+    p_serve.add_argument("--role", default="unified",
+                         choices=("unified", "prefill", "decode"),
+                         help="disaggregated replica role announced on "
+                              "/readyz: `prefill` computes prompt KV "
+                              "and ships pages (never owns a stream), "
+                              "`decode` owns streams; `unified` does "
+                              "both (the default single-role fleet) "
+                              "(docs/FLEET.md \"Disaggregated roles\")")
+    p_serve.add_argument("--model-id", default=None, metavar="NAME",
+                         help="model identity announced on /readyz for "
+                              "multi-model fleet routing (requests "
+                              "carry X-Model / \"model_id\"); unset "
+                              "announces none and routes as `default`")
+    p_serve.add_argument("--smoke", action="store_true",
+                         help="start, print the address, shut down")
+    telemetry_flags(p_serve)
+    p_serve.set_defaults(fn=_not_ported("serve"))
+
+    p_fleet = sub.add_parser(
+        "fleet",
+        help="router tier over N replica server processes "
+             "(docs/FLEET.md)")
+    p_fleet.add_argument("--model", "-m", default=None,
+                         help="checkpoint/conf served by spawned "
+                              "replicas (optional with --attach)")
+    p_fleet.add_argument("--replicas", type=int, default=2,
+                         help="replica processes to spawn locally "
+                              "(0 = attach-only)")
+    p_fleet.add_argument("--attach", action="append", default=[],
+                         metavar="URL",
+                         help="attach an already-running replica "
+                              "endpoint (repeatable)")
+    p_fleet.add_argument("--host", default="127.0.0.1")
+    p_fleet.add_argument("--port", type=int, default=0,
+                         help="router port; 0 = auto-assign (printed)")
+    p_fleet.add_argument("--heartbeat-interval", type=float, default=0.5)
+    p_fleet.add_argument("--heartbeat-timeout", type=float, default=3.0,
+                         help="evict a replica whose liveness probe "
+                              "has not succeeded for this long")
+    p_fleet.add_argument("--shed-high-water", type=int, default=None,
+                         help="shed (503 + Retry-After) when this many "
+                              "requests are in flight fleet-wide")
+    p_fleet.add_argument("--batch-high-water", type=int, default=None,
+                         help="shed BATCH-tier requests once this many "
+                              "are in flight fleet-wide (default: half "
+                              "of --shed-high-water) so bulk work sheds "
+                              "before the interactive lane feels "
+                              "pressure (docs/FLEET.md)")
+    p_fleet.add_argument("--request-timeout", type=float, default=60.0,
+                         help="per-hop /predict socket timeout ceiling; "
+                              "requests carrying X-Deadline-Ms derive "
+                              "their hop timeouts from the remaining "
+                              "budget instead (docs/SERVING.md)")
+    p_fleet.add_argument("--retry-budget", type=int, default=2,
+                         help="max /predict retries on healthy peers "
+                              "after a replica failure or timeout")
+    p_fleet.add_argument("--stream-resume-attempts", type=int, default=2,
+                         help="max mid-stream failover resumes per "
+                              "/generate before the router gives up "
+                              "with the in-band retryable error "
+                              "(0 disables durable-stream failover; "
+                              "docs/FLEET.md \"Stream failover\")")
+    p_fleet.add_argument("--breaker-threshold", type=int, default=3,
+                         help="consecutive request timeouts that trip a "
+                              "replica's circuit breaker open (evicting "
+                              "hung-but-TCP-alive members, docs/FLEET.md)")
+    p_fleet.add_argument("--breaker-reset", type=float, default=None,
+                         metavar="S",
+                         help="open -> half-open wait before the /readyz "
+                              "readmission probe (default: 4x the "
+                              "heartbeat interval)")
+    p_fleet.add_argument("--autoscale", default=None, metavar="MIN:MAX",
+                         help="enable the autoscaling hook between MIN "
+                              "and MAX replicas (queue-depth driven)")
+    p_fleet.add_argument("--ready-timeout", type=float, default=180.0,
+                         help="wait this long for the first replica to "
+                              "pass /readyz before announcing")
+    p_fleet.add_argument("--serve-arg", action="append", default=[],
+                         metavar="ARG",
+                         help="extra flag forwarded to each spawned "
+                              "replica's `serve` (repeatable)")
+    p_fleet.add_argument("--fleet-kv", default="on",
+                         choices=("on", "affinity-only", "off"),
+                         help="fleet KV plane mode, applied to BOTH "
+                              "the router (prefix-affinity placement, "
+                              "donor hints) and every spawned replica "
+                              "(summary publication, page shipping); "
+                              "`affinity-only` routes by prefix but "
+                              "never ships pages "
+                              "(docs/FLEET.md \"Fleet KV plane\")")
+    p_fleet.add_argument("--state-dir", default=None, metavar="DIR",
+                         help="crash-safe control plane: journal "
+                              "replica membership here (fleet.journal) "
+                              "so a restarted router (see `watchdog`) "
+                              "re-adopts the warm fleet via /readyz — "
+                              "zero respawns, zero recompiles "
+                              "(docs/FLEET.md router-restart runbook)")
+    p_fleet.add_argument("--compile-cache", default=None,
+                         metavar="DIR|auto|off",
+                         help="persistent AOT program cache exported "
+                              "to every spawned replica: respawns and "
+                              "autoscale spin-ups boot warm "
+                              "(docs/WARMUP.md); `auto` co-locates "
+                              "with a model/checkpoint DIR")
+    p_fleet.add_argument("--roles", default=None,
+                         metavar="ROLE=N[,ROLE=N...]",
+                         help="disaggregated role pools to spawn, e.g. "
+                              "`prefill=1,decode=2`: each pool's "
+                              "replicas get the matching `--role` "
+                              "serve flag and are autoscaled "
+                              "independently (docs/FLEET.md "
+                              "\"Disaggregated roles\"). Replaces "
+                              "--replicas for spawning")
+    p_fleet.add_argument("--models", default=None,
+                         metavar="NAME=PATH[,NAME=PATH...]",
+                         help="multi-model fleet: spawn one pool per "
+                              "named model (each replica serves PATH "
+                              "and announces `--model-id NAME`); "
+                              "combined with --roles every model gets "
+                              "the full role layout. Requests route by "
+                              "X-Model / \"model_id\"")
+    p_fleet.add_argument("--smoke", action="store_true",
+                         help="start, print the address, shut down "
+                              "(stops spawned replicas)")
+    telemetry_flags(p_fleet)
+    p_fleet.set_defaults(fn=_not_ported("fleet"))
+
+    p_watch = sub.add_parser(
+        "watchdog",
+        help="restart-under-backoff wrapper supervising a control-"
+             "plane subcommand (docs/FAULT_TOLERANCE.md)")
+    p_watch.add_argument("--max-restarts", type=int, default=10,
+                         help="give up after this many non-zero exits")
+    p_watch.add_argument("--backoff", type=float, default=1.0,
+                         help="initial restart backoff in seconds "
+                              "(doubles per restart)")
+    p_watch.add_argument("--backoff-max", type=float, default=30.0,
+                         help="backoff ceiling in seconds")
+    p_watch.add_argument("--stop-grace", type=float, default=10.0,
+                         help="seconds a forwarded SIGTERM/SIGINT may "
+                              "take before the child is killed")
+    p_watch.add_argument("cmd", nargs=argparse.REMAINDER,
+                         help="the wrapped subcommand, after `--`: "
+                              "e.g. `-- train --elastic 2 "
+                              "--state-dir S ...`")
+    p_watch.set_defaults(fn=_not_ported("watchdog"))
+
+    p_eval = sub.add_parser(
+        "eval",
+        help="one-shot held-out eval of a checkpoint — the pipeline's "
+             "promotion gate, runnable by hand (docs/PIPELINE.md)")
+    p_eval.add_argument("--model", "-m", required=True,
+                        help="conf .json (fresh net), .ckpt checkpoint, "
+                             "or sharded checkpoint dir")
+    p_eval.add_argument("--data", required=True,
+                        help="held-out CSV (features + trailing labels)")
+    p_eval.add_argument("--label-columns", type=int, default=1,
+                        help="trailing label columns (1 = integer class)")
+    p_eval.add_argument("--step", type=int, default=None,
+                        help="pin a committed step in a sharded dir "
+                             "(default: latest committed)")
+    p_eval.add_argument("--json", action="store_true",
+                        help="single-line machine-readable output")
+    device_flag(p_eval)
+    p_eval.set_defaults(fn=cmd_eval)
+
+    p_batch = sub.add_parser(
+        "batch",
+        help="bulk generation through a router on the batch SLO tier "
+             "with crash-safe resumable progress (docs/SERVING.md "
+             "\"Priority tiers\")")
+    p_batch.add_argument("--url", required=True,
+                         help="router (or single replica) base URL")
+    p_batch.add_argument("--input", "-i", required=True,
+                         help="JSONL prompts: each line a token list "
+                              "or {\"prompt\": [...], "
+                              "\"max_tokens\": N}")
+    p_batch.add_argument("--output", "-o", required=True,
+                         help="JSONL results, one line per input row "
+                              "({row, tokens, finish_reason}); "
+                              "appended to on resume")
+    p_batch.add_argument("--journal", default=None, metavar="PATH",
+                         help="progress cursor journal (default: "
+                              "OUTPUT.journal); delete it and the "
+                              "output to restart from row 0")
+    p_batch.add_argument("--max-tokens", type=int, default=16,
+                         help="decode budget for rows that do not "
+                              "carry their own")
+    p_batch.add_argument("--batch-size", type=int, default=8,
+                         help="rows per /generate request (admitted "
+                              "as one group)")
+    p_batch.add_argument("--eos-id", type=int, default=None,
+                         help="stop rows early at this token id")
+    p_batch.add_argument("--timeout", type=float, default=300.0,
+                         help="per-request socket timeout — batch "
+                              "work queues behind interactive "
+                              "admission and may be preempted "
+                              "mid-stream, so keep it generous")
+    p_batch.add_argument("--max-shed-retries", type=int, default=120,
+                         help="per-chunk 503 sheds to wait out before "
+                              "giving up (each honors the tier-aware "
+                              "Retry-After, capped at 5s a beat)")
+    p_batch.add_argument("--progress", action="store_true",
+                         help="print a JSON progress line per chunk")
+    p_batch.set_defaults(fn=_not_ported("batch"))
+
+    p_pipe = sub.add_parser(
+        "pipeline",
+        help="crash-safe train->serve deployment controller: watch -> "
+             "eval gate -> canary promote -> rollback "
+             "(docs/PIPELINE.md)")
+    p_pipe.add_argument("--checkpoint-dir", required=True, metavar="DIR",
+                        help="sharded checkpoint root to watch for "
+                             "newly COMMITTED steps (the training "
+                             "side's --checkpoint-dir)")
+    p_pipe.add_argument("--fleet-url", default=None, metavar="URL",
+                        help="router URL of an already-running fleet "
+                             "(`fleet` subcommand) to drive over HTTP")
+    p_pipe.add_argument("--spawn-fleet", action="store_true",
+                        help="spawn the serving fleet in-process "
+                             "instead (needs -m MODEL; starts a router "
+                             "+ --replicas replica processes)")
+    p_pipe.add_argument("--model", "-m", default=None,
+                        help="checkpoint/conf served by --spawn-fleet "
+                             "replicas at boot")
+    p_pipe.add_argument("--replicas", type=int, default=2,
+                        help="--spawn-fleet: replica processes")
+    p_pipe.add_argument("--host", default="127.0.0.1")
+    p_pipe.add_argument("--port", type=int, default=0,
+                        help="--spawn-fleet: router port (0 = auto)")
+    p_pipe.add_argument("--ready-timeout", type=float, default=180.0,
+                        help="--spawn-fleet: wait for the first replica")
+    p_pipe.add_argument("--serve-arg", action="append", default=[],
+                        metavar="ARG",
+                        help="--spawn-fleet: extra flag forwarded to "
+                             "each replica's `serve` (repeatable)")
+    p_pipe.add_argument("--eval-data", default=None, metavar="CSV",
+                        help="held-out CSV for the promotion gate "
+                             "(omitted = gate disabled: every committed "
+                             "step is canaried)")
+    p_pipe.add_argument("--eval-via-fleet", action="store_true",
+                        help="refresh the champion's regression "
+                             "baseline by scoring --eval-data against "
+                             "the LIVE fleet on the batch SLO tier "
+                             "before each gate (needs --fleet-url; "
+                             "docs/PIPELINE.md)")
+    p_pipe.add_argument("--label-columns", type=int, default=1)
+    p_pipe.add_argument("--metric", default="f1",
+                        choices=("f1", "accuracy", "precision",
+                                 "recall"),
+                        help="gate metric from the held-out eval")
+    p_pipe.add_argument("--eval-threshold", type=float, default=0.0,
+                        help="absolute gate: quarantine a candidate "
+                             "scoring below this")
+    p_pipe.add_argument("--regression-margin", type=float, default=0.05,
+                        help="relative gate: quarantine a candidate "
+                             "scoring more than this below the current "
+                             "champion's gate score")
+    p_pipe.add_argument("--poll-interval", type=float, default=2.0,
+                        help="checkpoint-dir watch interval in seconds "
+                             "(bounded polling; no inotify)")
+    p_pipe.add_argument("--probe", default=None, metavar="JSON",
+                        help="validation probe body forwarded to the "
+                             "canary's /predict before promotion, e.g. "
+                             "'{\"inputs\": [[0,0,0,0]]}'")
+    p_pipe.add_argument("--state-dir", default=None, metavar="DIR",
+                        help="crash-safe control plane: journal the "
+                             "controller's decision state here "
+                             "(controller.journal) so a restart (see "
+                             "`watchdog`) resumes mid-promotion to a "
+                             "consistent verdict; --spawn-fleet also "
+                             "journals the fleet under DIR/fleet")
+    p_pipe.add_argument("--name", default=None,
+                        help="pipeline label on dl4j_pipeline_* series")
+    p_pipe.add_argument("--status-port", type=int, default=None,
+                        help="serve the controller's status/healthz/"
+                             "metrics endpoint (0 = auto-assign)")
+    p_pipe.add_argument("--cycles", type=int, default=None, metavar="N",
+                        help="exit 0 after N watch cycles (default: "
+                             "run until stopped)")
+    p_pipe.add_argument("--compile-cache", default=None,
+                        metavar="DIR|auto|off",
+                        help="persistent AOT program cache exported to "
+                             "canary/promoted replicas; `auto` "
+                             "co-locates with the watched checkpoint "
+                             "dir (docs/WARMUP.md)")
+    p_pipe.add_argument("--smoke", action="store_true",
+                        help="start, print the announce line, shut down")
+    telemetry_flags(p_pipe)
+    p_pipe.set_defaults(fn=_not_ported("pipeline"))
+    return parser
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

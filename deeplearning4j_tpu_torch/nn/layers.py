@@ -34,9 +34,8 @@ from deeplearning4j_tpu_torch.ops.products import matmul_f32
 LAYER_REGISTRY: Dict[str, Type["BaseLayer"]] = {}
 
 #: layer types of the JAX package that this port has not taken yet
-NOT_PORTED = {
-    "lstm": "ROADMAP Queue 1 item 8b (models/lstm.py)",
-}
+#: (name -> ROADMAP item); every one resolves now
+NOT_PORTED: Dict[str, str] = {}
 
 
 def register_layer(name: str) -> Callable[[Type["BaseLayer"]],

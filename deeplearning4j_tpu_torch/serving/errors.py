@@ -6,7 +6,8 @@ loop's admission queue raises it at its `max_waiting` bound, with a
 `retry_after_ms` hint. `Deadline` / `DeadlineExceededError` are the
 end-to-end time budget: a request carries a `Deadline`, and the loop sheds
 it at submit or admission, or retires it mid-flight, once the budget is
-spent.
+spent. `PRIORITY_HEADER` and `TIER_BATCH` name the batch SLO tier on the
+wire, which `eval/holdout.py`'s fleet client speaks.
 """
 
 from __future__ import annotations
@@ -15,7 +16,15 @@ import math
 import time
 from typing import Optional
 
-__all__ = ["OverloadedError", "Deadline", "DeadlineExceededError"]
+__all__ = ["OverloadedError", "Deadline", "DeadlineExceededError",
+           "PRIORITY_HEADER", "TIER_BATCH"]
+
+#: the wire header carrying the request's SLO tier; the router forwards
+#: it so replicas never need to re-parse the body
+PRIORITY_HEADER = "X-Priority"
+
+#: the throughput tier: bulk generation/eval — sheds first, preemptible
+TIER_BATCH = "batch"
 
 
 class OverloadedError(RuntimeError):

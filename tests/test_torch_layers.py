@@ -374,9 +374,11 @@ def test_registry_names_and_unported_layers():
                 layers.LAYER_REGISTRY)
     with pytest.raises(ValueError, match="Unknown layer type"):
         layers.make_layer(_conf(layer="nope"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.make_layer(_conf(layer="lstm", n_in=2, n_out=2),
-                          device="cpu")
+    from deeplearning4j_tpu_torch.models import LSTM
+
+    assert layers.NOT_PORTED == {}
+    assert type(layers.make_layer(_conf(layer="lstm", n_in=2, n_out=2),
+                                  device="cpu")) is LSTM
 
 
 def test_bf16_product_keeps_a_float32_result_on_the_cpu():

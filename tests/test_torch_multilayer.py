@@ -426,10 +426,18 @@ def test_validate_batch_raises_as_jax_does():
 
 
 def test_paths_outside_the_slice_raise_naming_the_roadmap():
+    """Every layer type resolves now (the LSTM came last); what is still
+    outside the port names its ROADMAP item."""
+    from deeplearning4j_tpu_torch.checkpoint import restore_params_for
+    from deeplearning4j_tpu_torch.models import LSTM
+
     conf, _ = _mlp()
     conf.confs[0].layer = "lstm"
+    conf.confs[0].n_out = conf.confs[0].n_in
+    net = MultiLayerNetwork(conf, device="cpu")
+    assert type(net.layers[0]) is LSTM
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiLayerNetwork(conf, device="cpu")
+        restore_params_for("unused", shardings=None)
 
 
 def test_device_none_means_the_card():
@@ -456,7 +464,13 @@ def test_the_new_modules_import_without_jax():
             "optimize.guardian", "checkpoint", "checkpoint.format",
             "checkpoint.writer", "checkpoint.saver", "checkpoint.restore",
             "checkpoint.convert", "scaleout", "scaleout.checkpoint",
-            "datasets.iris", "datasets.device_feed"]
+            "datasets.iris", "datasets.device_feed", "runtime",
+            "runtime.native_loader", "utils.moving_window_matrix",
+            "utils.image_loader", "utils.archive", "datasets.records",
+            "datasets.csv", "datasets.curves", "datasets.moving_window",
+            "datasets.vectorizer", "datasets.lfw",
+            "datasets.async_iterator", "eval.holdout", "serving.errors",
+            "models.lstm", "cli"]
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             + "; ".join(f"import deeplearning4j_tpu_torch.{m}" for m in mods)
             + "; bad = [m for m in sys.modules if m.split('.')[0] in "
