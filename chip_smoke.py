@@ -45,8 +45,49 @@ prints no result):
                   InferenceEngine.for_transformer(..., decode_slots=8,
                   page_size=16), 16 requests with prompt lengths in
                   [16, 768] drawn from the seed, 64 new tokens each. Every
-                  stream must finish, every page must come back, and both
-                  kernels must have been launched on this path.
+                  stream must finish, every page must come back (free, or
+                  cached unreferenced by the prefix cache), both kernels
+                  must have been launched on this path, and the decode
+                  step must run as one captured CUDA graph.
+5b. serve_features — the decode loop's serving features on the same
+                  model (8 slots, page_size 16, 512 pages), each loop
+                  ticked by hand with the page invariant (free + in use
+                  + cached-unreferenced == n_pages) checked after every
+                  tick: the prefix cache (16 requests on a 256-token
+                  head, a seeding wave then 3 cold (opted out) and 3
+                  warm waves: warm hits 16 and prefills at least 16 x
+                  256 tokens fewer; a fully covered prompt forks once
+                  and prefills nothing; time to first token each);
+                  phase 5's requests eager at horizon 1 and as a CUDA
+                  graph at horizon 1 and 8; speculation with the ngram
+                  drafter (k 4) and a 2-layer d 512 model drafter (k 3)
+                  (two graphs; K4 (k+1) x layers a verify replay, K1
+                  counted in the drafter, acceptance; the drafter's
+                  proposals on the windows the run gave it against the
+                  same drafter with K1's plain version, K1 against its
+                  plain version on the drafter's own q, k, v and at its
+                  shape B*H 32, T 32, causal, on unit-scale inputs);
+                  8 batch streams then 4 interactive (a batch stream
+                  preempted, every interactive one done, every page
+                  back). Warm against cold, each graph against eager
+                  and speculation against eager give identical tokens,
+                  or EVERY stream's first difference is a near-tie: both
+                  tokens within the bf16 tolerance (2e-2) of the top
+                  logit of transformer_logits there, and where the
+                  arithmetic differs (warm against cold, speculation
+                  against eager) within two bf16 steps at that logit's
+                  magnitude, what the rounding of both runs' logits
+                  alone allows (one graph; K4 horizon x layers a
+                  replay; replay and launch ms; a steady window
+                  profiled).
+5c. serve_features_parity — 2 layers, float32, on the card: warm
+                  against cold prefix, speculative (ngram and model
+                  drafter) against plain, horizon 4 against horizon 1
+                  give identical tokens (or every first difference a
+                  near-tie within 1e-3); the model drafter with K1
+                  against its plain version the same way;
+                  paged_verify_step column by column against
+                  paged_decode_step's logits within 1e-3.
 6. train_parity — full width cut to 2 layers, float32, 2 x 301 tokens:
                   lm_loss and every gradient leaf on the card (K1 with its
                   lse, K2, K3) against the same weights on the CPU (plain
@@ -187,10 +228,11 @@ version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3;
 the median of 3 separate batches, all three recorded) and its bound, one
 whole prefill, decode step and training step, each profiled; K1, K2 and
 K3 also at the attention stack's shape (B*H 1024, T 28, hd 128, not
-causal). The kernels' launches are counted per path (serve, train,
-multilayer, solver, guardian, cli). The last lines are the card as
-nvidia-smi gives it, the kernels' JSON line (with each kernel's design),
-and
+causal), and K1 at the model drafter's shape. The kernels' launches
+are counted per path, a captured graph's replays included (serve,
+serve_features, spec, draft, train, multilayer, solver, guardian, cli).
+The last lines are the card as nvidia-smi gives it, the kernels' JSON
+line (with each kernel's design), and
 {"ok": true, "device": {...}}.
 """
 
@@ -200,6 +242,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -221,9 +264,10 @@ from deeplearning4j_tpu_torch.datasets import (DataSet, DataSetIterator,
                                                ListDataSetIterator)
 from deeplearning4j_tpu_torch.datasets.mnist import synthetic_mnist
 from deeplearning4j_tpu_torch.eval import Evaluation
+from deeplearning4j_tpu_torch.models import transformer as transformer_mod
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig, fit_scan, init_transformer_params, init_velocity,
-    lm_loss_and_grads, make_train_step)
+    lm_loss_and_grads, make_train_step, transformer_logits)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.preprocessors import (
     ConvolutionInputPreProcessor, ConvolutionPostProcessor,
@@ -635,12 +679,18 @@ def phase_parity(device, seed):
             "ok": finite and diff <= 1e-3}
 
 
+def serve_requests(seed):
+    """Phase 5's prompts: N_REQUESTS lengths in [16, 768], from the seed."""
+    rng = np.random.default_rng(seed)
+    plens = rng.integers(16, 769, N_REQUESTS).tolist()
+    return [rng.integers(0, FULL.vocab_size, n).tolist() for n in plens]
+
+
 def phase_serve(device, seed):
     params = init_transformer_params(seed, FULL, device=device)
     n_params = count_params(params)
-    rng = np.random.default_rng(seed)
-    plens = rng.integers(16, 769, N_REQUESTS).tolist()
-    prompts = [rng.integers(0, FULL.vocab_size, n).tolist() for n in plens]
+    prompts = serve_requests(seed)
+    plens = [len(p) for p in prompts]
     eng = InferenceEngine.for_transformer(params, FULL,
                                           decode_slots=SLOTS,
                                           page_size=PAGE_SIZE,
@@ -648,23 +698,24 @@ def phase_serve(device, seed):
     try:
         loop = eng.decode_loop
         torch.cuda.synchronize()
+        graphs_before = loop.graph_launches()
         flash.launches = 0
         paged.launches = 0
         t0 = time.perf_counter()
         streams = [eng.generate_stream(p, MAX_TOKENS) for p in prompts]
         outs = [s.result(timeout=600) for s in streams]
         wall = time.perf_counter() - t0
-        launches = {"flash_fwd": flash.launches,
-                    "paged_decode": paged.launches}
+        launches = loop_launches(loop, graphs_before)
         snap = loop.snapshot()
         steps = sorted(loop.step_seconds)
+        # every page back: free, or held by the prefix cache unreferenced
         ok = (all(s.finish_reason == "max_tokens" for s in streams)
               and all(len(o) == MAX_TOKENS for o in outs)
               and all(0 <= t < FULL.vocab_size for o in outs for t in o)
-              and snap["pages_in_use"] == 0
-              and snap["pages_free"] == loop.n_pages
+              and snap["pages_in_use"] == 0 and page_balance(loop)
               and launches["flash_fwd"] > 0 and launches["paged_decode"] > 0
-              and snap["decode_kernel"]["selected"] == "kernel")
+              and snap["decode_kernel"]["selected"] == "kernel"
+              and snap["decode_step_programs"] == 1)
         # the engine's other entry point: per-request KV-cached generate
         gen_out = eng.generate(np.array([prompts[0][:32]]), 8)
         ok = ok and gen_out.shape == (1, 40)
@@ -683,8 +734,611 @@ def phase_serve(device, seed):
             "decode_step_ms_p50": steps[len(steps) // 2] * 1e3,
             "decode_step_ms_mean": sum(steps) / len(steps) * 1e3,
             "prefill_groups": snap["prefill_groups"],
+            "prefix_cache": snap["prefix_cache"],
+            "decode_graphs": snap["decode_graphs"],
             "launches": launches, "peak_pages_in_use":
                 snap["peak_pages_in_use"], "ok": ok}, params, plens
+
+
+# --------------------------------------------------- serving features
+#: the serve_features phase: 16 requests sharing a 256-token head (16
+#: pages) with tails of 16-256 tokens, SF_NEW tokens each; the model
+#: drafter (2 layers, d 512, hd 128) on the target's vocabulary
+SF_PAGES, SF_HEAD, SF_TAIL, SF_NEW = 512, 256, (16, 256), 32
+SF_HORIZON, SF_NGRAM_K, SF_MODEL_K, SF_WAVES = 8, 4, 3, 3
+DRAFT = TransformerConfig(vocab_size=FULL.vocab_size, d_model=512,
+                          n_heads=4, n_layers=2, d_ff=2048,
+                          max_len=FULL.max_len, dtype=torch.bfloat16)
+#: serve_features_parity: a first token difference is forgiven when the
+#: reference's top-2 logit gap there is below this (float32)
+GAP_TOL = 1e-3
+PROFILE_GROUPS = {"paged_decode": "paged_decode", "cublas_gemm": ("nvjet",
+                                                                  "gemm"),
+                  "elementwise": "elementwise_kernel"}
+
+
+def loop_launches(loop, graphs_before) -> dict:
+    """One path's kernel launches through a decode loop: the wrappers'
+    counts (set to 0 at the path's start) plus what the loop's captured
+    graphs launched in their replays since `graphs_before` (its
+    graph_launches() at the start)."""
+    graphs = loop.graph_launches()
+    return {name: mod.launches + graphs[name] - graphs_before[name]
+            for name, mod in (("paged_decode", paged), ("flash_fwd", flash))}
+
+
+def page_balance(loop) -> bool:
+    """free + in use + cached-unreferenced == n_pages."""
+    return (len(loop._free) + loop.pages_in_use + loop._cached_unref()
+            == loop.n_pages)
+
+
+def drive(loop, streams, max_ticks=100_000):
+    """Tick a `start=False` loop until idle, checking the page invariant
+    after every tick; (wall s, each stream's time to first token in ms
+    from the drive's start, ticks whose invariant failed)."""
+    ttft = [None] * len(streams)
+    bad = 0
+    t0 = time.perf_counter()
+    for _ in range(max_ticks):
+        with loop._cond:
+            if not loop._waiting and loop.occupied_slots == 0:
+                break
+        loop.tick()
+        now = time.perf_counter()
+        bad += not page_balance(loop)
+        for i, s in enumerate(streams):
+            if ttft[i] is None and s._generated:
+                ttft[i] = (now - t0) * 1e3
+    else:
+        raise AssertionError("decode loop did not drain")
+    return time.perf_counter() - t0, ttft, bad
+
+
+def pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def feature_loop(params, cfg, device, **kw):
+    """A manually ticked decode loop behind the engine's entry point."""
+    kw.setdefault("page_size", PAGE_SIZE)
+    eng = InferenceEngine.for_transformer(params, cfg, decode_slots=SLOTS,
+                                          device=device, start=False, **kw)
+    return eng.decode_loop
+
+
+def run_requests(loop, prompts, max_tokens, **submit_kw):
+    """One path: the kernel counts set to 0, every prompt submitted at
+    once, the loop driven to idle, the counts read. The streams' tokens
+    and the run's numbers."""
+    before = loop.snapshot()
+    graphs_before = loop.graph_launches()
+    paged.launches = flash.launches = 0
+    streams = [loop.submit(p, max_tokens, **submit_kw) for p in prompts]
+    wall, ttft, bad = drive(loop, streams)
+    launches = loop_launches(loop, graphs_before)
+    snap = loop.snapshot()
+    n = snap["dispatches"] - before["dispatches"]
+    steps = sorted(list(loop.step_seconds)[-n:]) if n else []
+    generated = sum(len(s._generated) for s in streams)
+    return [s.result(0) for s in streams], {
+        "wall_s": wall, "generated_tokens": generated,
+        "tokens_per_s": generated / wall, "dispatches": n,
+        # decode tokens (all but the prefill firsts) a dispatch delivered
+        "tokens_per_dispatch": (generated - len(streams)) / max(n, 1),
+        "dispatch_ms_p50": pct(steps, 0.5) * 1e3 if steps else None,
+        "ttft_ms": ttft, "ttft_ms_p50": pct(ttft, 0.5),
+        "prefill_tokens": snap["prefill_tokens"] - before["prefill_tokens"],
+        "prefix": {k: snap["prefix_cache"][k] - before["prefix_cache"][k]
+                   for k in ("hits", "misses", "forks", "evictions")},
+        "launches": launches,
+        "reasons": sorted({s.finish_reason for s in streams}),
+        "invariant_failed_ticks": bad}
+
+
+def warm_up(loop):
+    """Capture the loop's graphs before a measured run: one request
+    whose prompt repeats (so the ngram drafter proposes), outside the
+    prefix cache."""
+    drive(loop, [loop.submit([5, 6, 7] * 6, 8, prefix_cache=False)])
+
+
+def replay_timing(loop, timer, name):
+    """One captured graph replayed with every slot idle (its writes go to
+    the trash page): device ms by CUDA events (`Timer.ms`), and the host
+    ms until `replay()` returns (p50 of 10)."""
+    loop._d_stop.zero_()
+    if name == "verify":
+        loop._verify_views(loop._vd_ctrl)[2].zero_()
+    loop._dirty = True
+    graph = loop._graphs[name].graph
+    device_ms = timer.ms(graph.replay)
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        graph.replay()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return {"replay_ms": device_ms, "launch_host_ms": pct(host, 0.5) * 1e3,
+            "capture_ms": loop._graphs[name].capture_ms}
+
+
+def steady_profile(loop, seed, iters=8):
+    """The device's busy share over `iters` ticks of a full loop in steady
+    decode (8 slots, prompts of 128 tokens), then drain."""
+    rng = np.random.default_rng(seed)
+    streams = [loop.submit(rng.integers(0, FULL.vocab_size, 128).tolist(),
+                           (iters + 4) * loop.horizon) for _ in range(SLOTS)]
+    for _ in range(3):
+        loop.tick()
+    prof = device_profile(loop.tick, iters=iters, groups=PROFILE_GROUPS)
+    for s in streams:
+        s.cancel()
+    drive(loop, [])
+    return prof
+
+
+def first_differences(params, cfg, prompts, outs_a, outs_b) -> list:
+    """The first difference of EVERY stream on which the two runs differ
+    (empty when they agree): its position, both tokens, the reference's
+    top-2 logit gap there and how far below the reference's top logit
+    each run's token lies. The reference is transformer_logits over the
+    prompt and the tokens both runs share."""
+    diffs = []
+    for i, (a, b) in enumerate(zip(outs_a, outs_b)):
+        if a == b:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        seq = torch.tensor([list(prompts[i]) + a[:j]], dtype=torch.int32,
+                           device=params["embed"].device)
+        with torch.no_grad():
+            logits = transformer_logits(params, seq, cfg)[0, -1].float()
+        diffs.append(near_tie_record(i, j, logits, [
+            a[j] if j < len(a) else None, b[j] if j < len(b) else None]))
+    return diffs
+
+
+def near_tie_record(row, position, logits, tokens) -> dict:
+    top = torch.topk(logits, 2).values
+    return {"stream": row, "position": position, "tokens": tokens,
+            "top_logit": float(top[0]), "top2_gap": float(top[0] - top[1]),
+            "below_top": [None if t is None else float(top[0] - logits[t])
+                          for t in tokens]}
+
+
+def dtype_step(dtype, value) -> float:
+    """The spacing of `dtype`'s values at |value| (one step, or ulp)."""
+    return math.ldexp(torch.finfo(dtype).eps, math.frexp(abs(value))[1] - 1)
+
+
+def near_ties(diffs, tol, rounded_in=None) -> bool:
+    """Every first difference is a rounding near-tie: each run's token
+    lies within `tol` of the reference's top logit there. With
+    `rounded_in` (the logits' dtype) for two runs whose arithmetic
+    differs, also within 2 steps of that dtype at the top logit: both
+    runs' logits are rounded to it, half a step each on the two logits
+    compared, so output rounding alone moves a pick that far."""
+    def allowed(d):
+        return (tol if rounded_in is None
+                else max(tol, 2 * dtype_step(rounded_in, d["top_logit"])))
+    return all(x is None or x <= allowed(d)
+               for d in diffs for x in d["below_top"])
+
+
+def record_windows(drafter, keep=4) -> list:
+    """Count the model drafter's K1 launches and keep the first `keep`
+    (S, window) batches it is given: wraps `propose_all` in place.
+    Returns [K1 launches, propose_all calls, windows]."""
+    rec = [0, 0, []]
+    propose = drafter.propose_all
+
+    def counted(windows, k):
+        before = flash.launches
+        res = propose(windows, k)
+        rec[0] += flash.launches - before
+        rec[1] += 1
+        if len(rec[2]) < keep:
+            rec[2].append(np.array(windows, copy=True))
+        return res
+
+    drafter.propose_all = counted
+    return rec
+
+
+@contextlib.contextmanager
+def attention_as(fn):
+    """The transformer's attention (K1's wrapper) replaced by `fn`."""
+    orig = transformer_mod.flash_attention
+    transformer_mod.flash_attention = fn
+    try:
+        yield orig
+    finally:
+        transformer_mod.flash_attention = orig
+
+
+def drafter_vs_plain(drafter, windows, k, tol) -> dict:
+    """The model drafter on the card (K1) against the same drafter with
+    K1's plain version in its place, on the windows the path gave it:
+    each row's k proposals equal, or its first difference a near-tie of
+    the plain run's draft logits (within `tol` of the top). K1 is also
+    held against its plain version on the very q, k, v the drafter's
+    layers give it: within TOL of its dtype times the largest |plain|
+    value. These comparison launches are not counted: the class's own
+    propose_all is called, past record_windows' wrapper."""
+    err, scale = 0.0, 0.0
+    propose = type(drafter).propose_all
+
+    def both(q, k_, v, causal):
+        nonlocal err, scale
+        out = kernel(q, k_, v, causal)
+        ref = flash.flash_attention_ref(q, k_, v, causal)
+        err = max(err, max_err(out, ref))
+        scale = max(scale, float(ref.abs().max()))
+        return out
+
+    def plain(q, k_, v, causal):
+        return flash.flash_attention_ref(q, k_, v, causal)
+
+    diffs, rows, shapes = [], 0, set()
+    for win in windows:
+        with attention_as(both) as kernel:
+            got = propose(drafter, win, k)
+        with attention_as(plain):
+            ref = propose(drafter, win, k)
+            for i in range(win.shape[0]):
+                rows += 1
+                if (got[i] == ref[i]).all():
+                    continue
+                j = int(np.argmax(got[i] != ref[i]))
+                hist = np.concatenate([win[i], ref[i, :j]])[-win.shape[1]:]
+                seq = torch.from_numpy(hist[None].astype(np.int32)).to(
+                    drafter.device)
+                with torch.no_grad():
+                    logits = transformer_logits(drafter.params, seq,
+                                                drafter.cfg)[0, -1].float()
+                diffs.append(near_tie_record(
+                    i, j, logits, [int(ref[i, j]), int(got[i, j])]))
+        shapes.add(tuple(win.shape))
+    dtype = drafter.cfg.dtype
+    return {"windows": len(windows), "rows": rows,
+            "window_shapes": sorted(shapes),
+            "first_differences": diffs,
+            "k1_path_max_abs_err": err, "k1_path_max_abs_plain": scale,
+            "ok": near_ties(diffs, tol) and err <= TOL[dtype] * scale}
+
+
+def k1_at_draft_shape(gen, device, drafter, slots) -> dict:
+    """K1 against its plain version at the model drafter's attention
+    shape (B*H = slots x heads, T = the draft window, causal), on
+    unit-scale inputs, within TOL of the drafter's dtype."""
+    cfg = drafter.cfg
+    bh, t, hd = slots * cfg.n_heads, drafter.window, cfg.d_model // cfg.n_heads
+    q, k, v = (torch.randn(bh, t, hd, generator=gen).to(device, cfg.dtype)
+               for _ in range(3))
+    err = max_err(flash.flash_attention(q, k, v, True),
+                  flash.flash_attention_ref(q, k, v, True))
+    return {"bh": bh, "tq": t, "tk": t, "hd": hd, "causal": True,
+            "dtype": str(cfg.dtype), "max_abs_err": err,
+            "ok": err <= TOL[cfg.dtype]}
+
+
+def phase_serve_features(device, seed, params, timer):
+    """The decode loop's serving features at full width: prefix cache,
+    horizon + CUDA graph, speculation (ngram and model drafters), SLO
+    tiers with preemption."""
+    rng = np.random.default_rng(seed + 10)
+    out, ok = {}, True
+    L = FULL.n_layers
+    #: each sub-run's launches: K4 in the verify rounds is "spec", K1 in
+    #: the model drafter "draft", everything else "serve_features"
+    by_path = {"paged_decode": {"serve_features": 0, "spec": 0},
+               "flash_fwd": {"serve_features": 0, "draft": 0}}
+
+    def count(run, spec=False, draft=0):
+        by_path["paged_decode"]["spec" if spec else "serve_features"] += \
+            run["launches"]["paged_decode"]
+        by_path["flash_fwd"]["draft"] += draft
+        by_path["flash_fwd"]["serve_features"] += \
+            run["launches"]["flash_fwd"] - draft
+
+    # 1. prefix cache: 16 requests on one head, cold and warm
+    head = rng.integers(0, FULL.vocab_size, SF_HEAD).tolist()
+    tails = rng.integers(SF_TAIL[0], SF_TAIL[1] + 1, N_REQUESTS).tolist()
+    prompts = [head + rng.integers(0, FULL.vocab_size, t).tolist()
+               for t in tails]
+    t_sec = time.perf_counter()
+    loop = feature_loop(params, FULL, device, kv_pages=SF_PAGES)
+    warm_up(loop)
+    # cold (opted out) and warm waves alternate, after one seeding wave
+    _, seeding = run_requests(loop, prompts, SF_NEW)
+    colds, warms = [], []
+    for _ in range(SF_WAVES):
+        cold_toks, cold = run_requests(loop, prompts, SF_NEW,
+                                       prefix_cache=False)
+        warm_toks, warm = run_requests(loop, prompts, SF_NEW)
+        colds.append(cold)
+        warms.append(warm)
+    # a fully covered prompt (the 16 head pages): no prefill, one fork
+    _, full = run_requests(loop, [head], SF_NEW)
+    runs = [seeding, *colds, *warms, full]
+    for run in runs:
+        count(run)
+    loop_snap = loop.snapshot()
+    total = sum(len(p) for p in prompts)
+    # the warm tail is prefilled in float32 over the cached pages, the
+    # cold prompt by K1 in bf16: tokens may part only at near-ties
+    warm_diffs = first_differences(params, FULL, prompts, cold_toks,
+                                   warm_toks)
+    prefix_ok = (near_ties(warm_diffs, TOL[FULL.dtype], FULL.dtype)
+                 and all(c["prefill_tokens"] == total for c in colds)
+                 and all(w["prefix"]["hits"] >= N_REQUESTS
+                         and w["prefill_tokens"]
+                         <= total - N_REQUESTS * SF_HEAD for w in warms)
+                 and full["prefix"]["forks"] == 1
+                 and full["prefill_tokens"] == 0
+                 and all(r["invariant_failed_ticks"] == 0 for r in runs)
+                 and loop_snap["pages_in_use"] == 0 and page_balance(loop)
+                 and all(r["reasons"] == ["max_tokens"] for r in runs))
+
+    def first_wave(waves):
+        # the time to first token of the requests admitted at once
+        return [w["ttft_ms"][0] for w in waves]
+
+    out["prefix_cache"] = {
+        "requests": N_REQUESTS, "head_tokens": SF_HEAD,
+        "tail_tokens": tails, "new_tokens": SF_NEW, "seeding": seeding,
+        "cold": colds, "warm": warms, "full_hit": full,
+        "first_wave_ttft_ms": {"cold": first_wave(colds),
+                               "warm": first_wave(warms)},
+        "ttft_ms_p50": {"cold": pct([t for c in colds
+                                     for t in c["ttft_ms"]], 0.5),
+                        "warm": pct([t for w in warms
+                                     for t in w["ttft_ms"]], 0.5)},
+        "warm_equal_cold_streams": sum(a == b for a, b in
+                                       zip(warm_toks, cold_toks)),
+        "warm_first_differences_vs_cold": warm_diffs,
+        "pages_cached": loop_snap["prefix_cache"]["pages_cached"],
+        "seconds": time.perf_counter() - t_sec, "ok": prefix_ok}
+    ok = ok and prefix_ok
+    del loop
+
+    # 2. horizon and graph: phase 5's requests, eager h1 / graph h1 /
+    # graph h8
+    serve_prompts = serve_requests(seed)
+    t_sec = time.perf_counter()
+    runs, toks = {}, {}
+    for name, horizon, capture in (("eager_h1", 1, False),
+                                   ("graph_h1", 1, True),
+                                   (f"graph_h{SF_HORIZON}", SF_HORIZON,
+                                    True)):
+        loop = feature_loop(params, FULL, device, horizon=horizon,
+                            kv_pages=SF_PAGES)
+        loop._capture = capture
+        warm_up(loop)
+        toks[name], runs[name] = run_requests(loop, serve_prompts,
+                                              MAX_TOKENS)
+        count(runs[name])
+        snap = loop.snapshot()
+        runs[name]["decode_step_programs"] = loop.decode_step_programs()
+        runs[name]["graph_replays"] = snap["decode_graphs"]["replays"]
+        runs[name]["ms_per_token_p50"] = (runs[name]["dispatch_ms_p50"]
+                                          / horizon)
+        runs[name]["profile"] = steady_profile(loop, seed + 20)
+        if capture:
+            g = loop._graphs["step"]
+            runs[name]["graph_launches_per_replay"] = g.launches
+            runs[name]["graph"] = replay_timing(loop, timer, "step")
+            ok = ok and g.launches["paged_decode"] == horizon * L
+        ok = ok and runs[name]["invariant_failed_ticks"] == 0
+        del loop
+    diffs = {name: first_differences(params, FULL, serve_prompts,
+                                      toks["eager_h1"], toks[name])
+             for name in runs if name != "eager_h1"}
+    horizon_ok = (all(near_ties(d, TOL[FULL.dtype]) for d in diffs.values())
+                  and runs["graph_h1"]["decode_step_programs"] == 1
+                  and runs[f"graph_h{SF_HORIZON}"]["decode_step_programs"]
+                  == 1)
+    out["horizon"] = {"runs": runs, "first_differences_vs_eager": diffs,
+                      "seconds": time.perf_counter() - t_sec,
+                      "ok": horizon_ok}
+    ok = ok and horizon_ok
+
+    # 3. speculation: ngram k=4, then the model drafter k=3
+    t_sec = time.perf_counter()
+    draft_params = init_transformer_params(seed + 7, DRAFT, device=device)
+    spec = {}
+    for name, kw in (("ngram", {"speculation": SF_NGRAM_K}),
+                     ("model", {"speculation": SF_MODEL_K,
+                                "drafter": "model",
+                                "draft_params": draft_params,
+                                "draft_cfg": DRAFT})):
+        loop = feature_loop(params, FULL, device, kv_pages=SF_PAGES, **kw)
+        k = kw["speculation"]
+        # (K1 launches, propose_all calls, windows kept)
+        draft_k1 = (record_windows(loop._drafter) if name == "model"
+                    else [0, 0, []])
+        warm_up(loop)
+        draft_k1[:] = [0, 0, []]
+        spec_toks, run = run_requests(loop, serve_prompts, MAX_TOKENS)
+        count(run, spec=True, draft=draft_k1[0])
+        diffs = first_differences(params, FULL, serve_prompts,
+                                  toks["eager_h1"], spec_toks)
+        snap = loop.snapshot()
+        sp = snap["speculation"]
+        graphs = loop._graphs
+        verify = graphs.get("verify")
+        run.update({
+            "k": k, "proposed": sp["proposed"], "accepted": sp["accepted"],
+            "rounds": sp["rounds"], "acceptance_rate": sp["acceptance_rate"],
+            "decode_step_programs": loop.decode_step_programs(),
+            "graph_replays": snap["decode_graphs"]["replays"],
+            "verify_k4_per_replay": (verify.launches["paged_decode"]
+                                     if verify else 0),
+            "equal_to_plain_streams": sum(
+                a == b for a, b in zip(spec_toks, toks["eager_h1"])),
+            "first_differences_vs_eager": diffs})
+        run["verify_graph"] = replay_timing(loop, timer, "verify")
+        run["step_graph"] = (replay_timing(loop, timer, "step")
+                             if "step" in graphs else None)
+        if name == "model":
+            run["draft_k1_launches"] = draft_k1[0]
+            run["draft_calls"] = draft_k1[1]
+            run["drafter_vs_plain"] = drafter_vs_plain(
+                loop._drafter, draft_k1[2], k, TOL[DRAFT.dtype])
+            run["draft_k1_check"] = k1_at_draft_shape(
+                torch.Generator().manual_seed(seed), device, loop._drafter,
+                SLOTS)
+            ok = (ok and draft_k1[0] == draft_k1[1] * k * DRAFT.n_layers > 0
+                  and len(draft_k1[2]) > 0
+                  and run["drafter_vs_plain"]["ok"]
+                  and run["draft_k1_check"]["ok"])
+        ok = (ok and verify is not None
+              and near_ties(diffs, TOL[FULL.dtype], FULL.dtype)
+              and verify.launches["paged_decode"] == (k + 1) * L
+              and run["decode_step_programs"] == 2
+              and run["invariant_failed_ticks"] == 0
+              and run["reasons"] == ["max_tokens"])
+        spec[name] = run
+        del loop
+    spec["seconds"] = time.perf_counter() - t_sec
+    out["speculation"] = spec
+    del draft_params
+
+    # 4. SLO tiers: batch holds every slot, then interactive arrivals
+    t_sec = time.perf_counter()
+    loop = feature_loop(params, FULL, device, kv_pages=SF_PAGES)
+    warm_up(loop)
+    graphs_before = loop.graph_launches()
+    paged.launches = flash.launches = 0
+    batch = [loop.submit(rng.integers(0, FULL.vocab_size, 64).tolist(),
+                         256, tier="batch") for _ in range(SLOTS)]
+    for _ in range(4):
+        loop.tick()
+    held = loop.snapshot()["tiers"]["occupied"]["batch"]
+    inter = [loop.submit(rng.integers(0, FULL.vocab_size, 48).tolist(), 16)
+             for _ in range(4)]
+    wall, ttft, bad = drive(loop, batch + inter)
+    count({"launches": loop_launches(loop, graphs_before)})
+    snap = loop.snapshot()
+    reasons = [s.finish_reason for s in batch]
+    tiers_ok = (held == SLOTS and reasons.count("preempted") >= 1
+                and all(s.finish_reason == "max_tokens" for s in inter)
+                and bad == 0 and snap["pages_in_use"] == 0
+                and page_balance(loop))
+    out["tiers"] = {"batch_held_before": held,
+                    "batch_reasons": reasons,
+                    "interactive_reasons": [s.finish_reason for s in inter],
+                    "interactive_ttft_ms": ttft[SLOTS:],
+                    "preemptions": snap["tiers"]["preemptions"],
+                    "wall_s": wall, "invariant_failed_ticks": bad,
+                    "seconds": time.perf_counter() - t_sec,
+                    "ok": tiers_ok}
+    ok = ok and tiers_ok
+    del loop
+    out["launches_by_path"] = by_path
+    out["ok"] = ok
+    return out
+
+
+def phase_serve_features_parity(device, seed):
+    """The parity phase's width (2 layers, float32) on the card: warm
+    against cold prefix, speculative (ngram, and the model drafter)
+    against plain, horizon 4 against horizon 1 give identical tokens (a
+    stream's first difference is forgiven where both tokens lie within
+    GAP_TOL of the top logit); the model drafter's proposals with K1
+    against K1's plain version the same way; paged_verify_step held
+    column by column against paged_decode_step's logits within 1e-3."""
+    cfg = FULL._replace(n_layers=2, dtype=torch.float32)
+    params = init_transformer_params(seed, cfg, device=device)
+    rng = np.random.default_rng(seed + 30)
+    head = rng.integers(0, cfg.vocab_size, 64).tolist()
+    prompts = [head + rng.integers(0, cfg.vocab_size, t).tolist()
+               for t in (5, 37, 64, 90)]
+    n_new = 24
+
+    def run(**kw):
+        loop = feature_loop(params, cfg, device, **kw)
+        outs, rec = run_requests(loop, prompts, n_new)
+        ok = rec["invariant_failed_ticks"] == 0
+        return loop, outs, rec, ok
+
+    _, plain, _, ok = run(prefix_cache=False)
+    loop, _, _, ok_s = run()
+    warm, warm_rec = run_requests(loop, prompts, n_new)
+    ok = ok and ok_s and warm_rec["prefix"]["hits"] == len(prompts)
+    _, spec, spec_rec, ok_p = run(speculation=4)
+    _, h4, _, ok_h = run(horizon=4)
+    dcfg = DRAFT._replace(dtype=torch.float32)
+    dloop = feature_loop(params, cfg, device, speculation=3,
+                         drafter="model", draft_cfg=dcfg,
+                         draft_params=init_transformer_params(
+                             seed + 7, dcfg, device=device))
+    windows = record_windows(dloop._drafter)
+    model_spec, model_rec = run_requests(dloop, prompts, n_new)
+    drafter = drafter_vs_plain(dloop._drafter, windows[2], 3, GAP_TOL)
+    ok = (ok and ok_p and ok_h and model_rec["invariant_failed_ticks"] == 0
+          and windows[0] > 0 and drafter["ok"])
+    diffs = {name: first_differences(params, cfg, prompts, plain, other)
+             for name, other in (("warm", warm), ("speculative", spec),
+                                 ("model_speculative", model_spec),
+                                 ("horizon4", h4))}
+    ok = ok and all(near_ties(d, GAP_TOL) for d in diffs.values())
+
+    # verify step column by column against chained decode steps (K4)
+    W, n_pages = 5, 64
+    pps = paged_kv.pages_per_slot(cfg, PAGE_SIZE)
+    lens = [37, 100, 16, 250]
+    table = np.full((4, pps), n_pages, np.int32)
+    pos = 0
+    for i, n in enumerate(lens):
+        need = paged_kv.pages_for_tokens(n + W, PAGE_SIZE)
+        table[i, :need] = range(pos, pos + need)
+        pos += need
+    tokens = rng.integers(0, cfg.vocab_size, (4, W)).astype(np.int32)
+    widths = np.array([W, 1, 3, W], np.int32)
+    g = torch.Generator().manual_seed(seed)
+
+    def fresh_pool():
+        pool = paged_kv.init_paged_pool(cfg, n_pages, PAGE_SIZE,
+                                        device=device)
+        for layer in pool.layers:
+            for name in ("k", "v"):
+                layer[name].copy_(torch.randn(layer[name].shape,
+                                              generator=g).to(device))
+        return pool
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    pool_a = fresh_pool()
+    g.manual_seed(seed)
+    pool_b = fresh_pool()
+    vlog, _ = paged_kv.paged_verify_step(params, t(tokens), pool_a, t(table),
+                                         t(np.array(lens, np.int32)),
+                                         t(widths), cfg, kernel="kernel")
+    cur = np.array(lens, np.int32)
+    verify_err = 0.0
+    for j in range(W):
+        act = widths > j
+        dlog, _ = paged_kv.paged_decode_step(
+            params, t(tokens[:, j]), pool_b, t(table), t(cur), t(act), cfg,
+            kernel="kernel")
+        for i in range(4):
+            if act[i]:
+                verify_err = max(verify_err, max_err(vlog[i, j], dlog[i]))
+        cur = cur + act.astype(np.int32)
+    ok = ok and verify_err <= 1e-3
+    return {"layers": cfg.n_layers, "dtype": "float32",
+            "prompt_lengths": [len(p) for p in prompts], "new_tokens": n_new,
+            "first_differences_vs_plain": diffs,
+            "warm_hits": warm_rec["prefix"]["hits"],
+            "speculative_dispatches": spec_rec["dispatches"],
+            "model_speculative_dispatches": model_rec["dispatches"],
+            "draft_k1_launches": windows[0], "drafter_vs_plain": drafter,
+            "verify_vs_decode_max_abs_err": verify_err,
+            "verify_widths": widths.tolist(), "ok": ok}
 
 
 def flash_counts() -> dict:
@@ -2804,6 +3458,19 @@ def main(argv=None) -> int:
 
     kernels, steps = main_path_timing(device, timer, params, plens, serve,
                                       args.seed, worst, serve["launches"])
+    for name, fn in (("serve_features",
+                      lambda: phase_serve_features(device, args.seed,
+                                                   params, timer)),
+                     ("serve_features_parity",
+                      lambda: phase_serve_features_parity(device,
+                                                          args.seed))):
+        t0 = time.perf_counter()
+        res = fn()
+        res["seconds"] = time.perf_counter() - t0
+        emit({"phase": name, **res})
+        record[name] = res
+        if not res["ok"]:
+            raise AssertionError(f"{name} failed: {res}")
     del params
 
     train_parity = phase_train_parity(device, args.seed)
@@ -2864,8 +3531,16 @@ def main(argv=None) -> int:
     shutil.rmtree(CLI_DIR, ignore_errors=True)
 
     k1, k4 = kernels
+    sf = record["serve_features"]["launches_by_path"]
+    k1["draft_shape"] = \
+        record["serve_features"]["speculation"]["model"]["draft_k1_check"]
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            k1["draft_shape"]["max_abs_err"])
     k1["launches_by_path"] = {"serve": k1["launches"],
+                              **sf["flash_fwd"],
                               "train": train["launches"]["flash_fwd"]}
+    k4["launches_by_path"] = {"serve": k4["launches"], **sf["paged_decode"]}
+    k4["launches"] = sum(k4["launches_by_path"].values())
     for row in bwd_rows:
         row["launches_by_path"] = {"train": row["launches"]}
     for row in (k1, *bwd_rows):

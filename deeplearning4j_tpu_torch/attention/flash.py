@@ -28,10 +28,14 @@ sentinel, not the -inf merge identity; see the JAX docstring of
 `flash_attention_with_lse`) and exactly zero gradient.
 
 `launches`, `dq_launches` and `dkv_launches` count launches of K1, K2 and
-K3, never plain-version calls.
+K3, never plain-version calls. A K1 call made while the current stream
+is capturing a CUDA graph runs no kernel: it counts in the calling
+thread's `captured_launches()` instead of `launches`.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -51,10 +55,19 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+#: per thread: K1 launches recorded into CUDA graphs under capture
+_captured = threading.local()
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_ref", "flash_attention_bwd_ref", "launches",
-           "dq_launches", "dkv_launches", "LOG2E", "LN2", "NEG_INF"]
+           "dq_launches", "dkv_launches", "captured_launches", "LOG2E", "LN2",
+           "NEG_INF"]
+
+
+def captured_launches() -> int:
+    """K1 launches this thread has recorded into CUDA graphs under
+    capture (they ran no kernel, so `launches` leaves them out)."""
+    return getattr(_captured, "n", 0)
 
 
 def scale2(d: int) -> float:
@@ -196,7 +209,10 @@ def _flash_forward(q, k, v, causal: bool, want_lse: bool):
             KERNEL_DTYPES[q.dtype], int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "dl4j_flash_fwd")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured.n = captured_launches() + 1
+    else:
+        launches += 1
     return out, lse
 
 

@@ -20,10 +20,15 @@ the block pool (the PagedAttention design) instead of gathering a dense
 `resolve_decode_kernel` is the lane selector behind the
 `kernel="auto"|"kernel"|"gather"` knob of `DecodeLoop` and the engine.
 `launches` counts wrapper calls that launched the kernel (its split and
-combine launches count once), never plain-version calls.
+combine launches count once), never plain-version calls. A call made
+while the current stream is capturing a CUDA graph records the kernel
+without running it: it counts in the calling thread's
+`captured_launches()` instead, and the graph's owner counts its replays.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -40,10 +45,19 @@ SPLIT_POSITIONS = 64
 
 #: kernel launches since import (chip_smoke.py resets and reads it)
 launches = 0
+#: per thread: launches recorded into CUDA graphs under capture
+_captured = threading.local()
 
 __all__ = ["paged_attention", "paged_attention_ref",
            "paged_attention_split_ref", "pages_per_split",
-           "resolve_decode_kernel", "DECODE_KERNELS", "launches"]
+           "resolve_decode_kernel", "DECODE_KERNELS", "launches",
+           "captured_launches"]
+
+
+def captured_launches() -> int:
+    """Kernel launches this thread has recorded into CUDA graphs under
+    capture (they ran no kernel, so `launches` leaves them out)."""
+    return getattr(_captured, "n", 0)
 
 
 def pages_per_split(page_size: int) -> int:
@@ -208,7 +222,10 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
             KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "dl4j_paged_decode")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured.n = captured_launches() + 1
+    else:
+        launches += 1
     return out
 
 

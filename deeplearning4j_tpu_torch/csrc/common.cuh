@@ -4,6 +4,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace dl4j {
 
 // Same constants as attention/flash.py: softmax state is kept in base 2
@@ -34,6 +36,24 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
+}
+
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and
+// device, at the kernel's first launch there. Later launches, including
+// those recorded into a CUDA graph, skip the call. `done` is the calling
+// launcher's flag word for this kernel: bit d set once device d has it.
+template <typename Kernel>
+inline cudaError_t set_max_smem_once(Kernel kern, int smem,
+                                     std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

@@ -692,8 +692,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<HD>();
   auto kern = flash_bwd_dq_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = set_max_smem_once(kern, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   float scale, scale2;
   scales(HD, &scale, &scale2);
@@ -713,8 +713,8 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
                             cudaStream_t stream) {
   const size_t smem = dq_wgmma_smem_bytes<HD>();
   auto kern = flash_bwd_dq_kernel_wgmma<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = set_max_smem_once(kern, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   float scale, scale2;
   scales(HD, &scale, &scale2);
@@ -734,8 +734,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<HD>();
   auto kern = flash_bwd_dkv_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = set_max_smem_once(kern, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   float scale, scale2;
   scales(HD, &scale, &scale2);
@@ -757,8 +757,8 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
                              cudaStream_t stream) {
   const size_t smem = dkv_wgmma_smem_bytes<HD>();
   auto kern = flash_bwd_dkv_kernel_wgmma<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = set_max_smem_once(kern, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   float scale, scale2;
   scales(HD, &scale, &scale2);

@@ -234,8 +234,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          int causal, cudaStream_t stream) {
   const size_t smem = wgmma_smem_bytes<HD>();
   auto kern = flash_fwd_kernel_wgmma<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = set_max_smem_once(kern, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   const float scale2 = kLog2e / sqrtf((float)HD);
   const dim3 grid((tq + kRows - 1) / kRows, bh);
@@ -397,8 +397,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   auto kern = flash_fwd_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = set_max_smem_once(kern, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   const float scale2 = kLog2e / sqrtf((float)HD);
   const dim3 grid((tq + kBlockM - 1) / kBlockM, bh);

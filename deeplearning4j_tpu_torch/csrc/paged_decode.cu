@@ -273,8 +273,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    cudaStream_t stream) {
   const size_t smem = Shape<T, HD>::smem_bytes();
   auto split = paged_decode_split_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = set_max_smem_once(split, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   const float scale2 = kLog2e / sqrtf((float)HD);
   const int n_splits = (table_width + pages_per_split - 1) / pages_per_split;

@@ -1,38 +1,89 @@
 """Continuous-batching decode loop over a paged KV pool — the counterpart
-of the JAX package's `serving/decode_loop.py`, cut down to its plain path.
+of the JAX package's `serving/decode_loop.py`.
 
 - a fixed pool of **S slots** rides one decode step
   (`paged_kv.paged_decode_step` + on-device argmax feedback). Slot
   membership is a per-slot `stop` bound on the device, never a shape:
   requests join and leave at token boundaries;
 - KV lives in a **paged block pool**: a request holds
-  `ceil(tokens/page_size)` pages, pages return to the free list the
-  moment it completes, and admission is a free-page check;
+  `ceil(tokens/page_size)` pages, pages return to the pool the moment it
+  completes, and admission is a free-page check;
 - a **scheduler thread** admits queued prompts into freed slots between
   steps (batched, bucketed `paged_prefill` scatters the prompts' K/V into
   their pages) and emits tokens onto per-request `GenerationStream`s;
 - per-slot **max_tokens / EOS** termination, cancellation and deadlines
   free a slot and its pages immediately.
 
-The device carry — last tokens, page table, lengths, stop bounds — feeds
-straight back into the next step; the host re-uploads the (S,)/(S, P)
-control arrays only after a visible event (admission, completion, page
-grant). Prefill first tokens stay on the device until the next step has
-been dispatched. All device work runs on the scheduler thread's current
-CUDA stream; an exception there fails every in-flight and queued stream
-(`_fail_all`), and the callers see it from `result()`.
+The device carry — last tokens, page table, lengths, stop bounds — lives
+in persistent device buffers that feed straight back into the next step;
+the host re-fills them (one synchronous copy of every control array)
+only after a visible event (admission, completion, page grant). Prefill
+first tokens stay on the device until the next step has been dispatched.
+All device work runs on the scheduler thread's current CUDA stream; an
+exception there fails every in-flight and queued stream (`_fail_all`),
+and the callers see it from `result()`.
 
-Backpressure: a request is admitted only when the pool can cover its
-prompt plus the first decode write; a mid-flight slot that needs a page
-with the pool empty stops advancing until a completion frees pages. If
-every occupied slot is stalled and nothing can free a page, the stalled
-streams fail with an error instead of deadlocking.
+**Decode horizon** (`horizon=K`): one dispatch runs K chained decode
+steps with on-device argmax feedback, each slot gated by `lengths <
+stop`, so a slot never writes past its token budget or its granted
+pages; the host copies one (K, S) token array back and trims EOS
+overshoot. **CUDA graph**: on a CUDA device the fixed-shape step chain is
+captured once as a `torch.cuda.CUDAGraph` (on the scheduler thread, at
+the first dispatch) and replayed for every dispatch; so is the verify
+step under speculation. That is this package's counterpart of the JAX
+package's single jitted program: `decode_step_programs()` counts the
+captured graphs (1 plain; 2 with speculation, both captured at the
+first dispatch). On the CPU the step runs eagerly and
+`decode_step_programs()` counts the distinct step shapes run. A failed
+capture raises; nothing gives way to the eager step on the card. A
+capture runs no kernel, so the wrappers' `launches` counters leave it
+out; `graph_launches()` counts what the replays launched (replays x the
+launches the capturing thread recorded into each graph).
+
+**Prefix cache** (`prefix_cache=True`, the default): a radix trie over
+page-aligned token chunks (`prefix_cache.PrefixIndex`) sits in front of
+admission. Pages are REFCOUNTED: a prompt whose leading full chunks are
+cached maps those pages by reference and prefills only the uncovered
+tail (`paged_prefill_ctx`); a fully covered prompt skips prefill and
+replays its last prompt token through the decode step. Shared pages are
+read-only: the copy-on-write guard forks (`copy_page`) every shared page
+a dispatch is about to write, and stalls the slot at the shared frontier
+when no page is free. A retiring request seeds the trie with its full
+prompt pages (never forked ones); an LRU tier evicts unreferenced cached
+pages on demand. Every page is in exactly one of: the free list, in use
+(refcount > 0), or cached-unreferenced. `submit*(..., prefix_cache=False)`
+neither matches nor seeds.
+
+**Speculative decoding** (`speculation=k`): each round a drafter
+(`speculation.py`: "ngram" prompt lookup over the slot's history and the
+trie, or "model", a small draft transformer) proposes up to k tokens per
+slot, ONE widened verify step (`paged_kv.paged_verify_step`, K4 once per
+column on the card) scores all of them, and the longest run matching the
+target's own argmax is accepted plus the target's token at the first
+mismatch: output is identical to plain decode. Rollback is the host
+cursor not moving. `submit*(..., speculation=False)` rides at width 1.
+Speculation and `horizon > 1` are mutually exclusive.
+
+**SLO tiers** (`tier="interactive"|"batch"` on submit): interactive
+arrivals go ahead of batch ones at admission (FIFO within a tier); batch
+holds at most `batch_share` of the slots while interactive work is live
+and soaks idle slots otherwise; batch sheds at its own lower
+`batch_max_waiting` bound with a backlog-derived Retry-After; a blocked
+interactive admission preempts the batch slot with the fewest emitted
+tokens (finish_reason "preempted"), whose full prompt pages seed the
+prefix cache.
+
+Backpressure: a request is admitted only when the pool (free list plus
+evictable cached pages) can cover its prompt plus the first decode
+write; a mid-flight slot that needs a page with none available stops
+advancing until a completion frees pages. If every occupied slot is
+stalled and nothing can free a page, the stalled streams fail with an
+error instead of deadlocking.
 
 Not ported yet, and refused by the constructor with NotImplementedError:
-the prefix cache, speculative decoding, `horizon > 1`, SLO tiers other
-than interactive, the fleet KV plane and roles other than unified
-(ROADMAP.md, Queue 1). `kernel="auto"|"kernel"|"gather"` picks the
-decode attention read (`attention.paged.resolve_decode_kernel`).
+the fleet KV plane and roles other than unified (ROADMAP.md, Queue 1,
+item 10e). `kernel="auto"|"kernel"|"gather"` picks the decode attention
+read (`attention.paged.resolve_decode_kernel`).
 """
 
 from __future__ import annotations
@@ -48,33 +99,45 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import default_device
+from deeplearning4j_tpu_torch.attention import flash, paged
 from deeplearning4j_tpu_torch.attention.paged import resolve_decode_kernel
 from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
-from deeplearning4j_tpu_torch.serving.errors import (Deadline,
+from deeplearning4j_tpu_torch.serving.errors import (TIER_BATCH,
+                                                     TIER_INTERACTIVE, TIERS,
+                                                     Deadline,
                                                      DeadlineExceededError,
-                                                     OverloadedError)
-from deeplearning4j_tpu_torch.serving.paged_kv import (init_paged_pool,
+                                                     OverloadedError,
+                                                     backlog_retry_ms)
+from deeplearning4j_tpu_torch.serving.paged_kv import (copy_page,
+                                                       decode_read_bytes,
+                                                       init_paged_pool,
                                                        paged_decode_step,
                                                        paged_kv_bytes,
                                                        paged_prefill,
+                                                       paged_prefill_ctx,
+                                                       paged_verify_step,
                                                        pages_for_tokens,
                                                        pages_per_slot,
                                                        prompt_buckets)
+from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixIndex
+from deeplearning4j_tpu_torch.serving.speculation import build_drafter
 from deeplearning4j_tpu_torch.weights import params_to_device
 
 __all__ = ["GenerationStream", "DecodeLoop"]
 
 _DONE = object()
-TIER_INTERACTIVE = "interactive"
 #: the ROADMAP.md entry each refused option waits on
 _NOT_PORTED = {
-    "prefix_cache": "prefix cache + copy_page",
-    "speculation": "speculative decoding + paged_verify_step",
-    "horizon": "decode horizon > 1",
-    "tier": "SLO tiers (batch tier, preemption)",
-    "fleet_kv": "fleet KV plane",
-    "role": "disaggregated prefill/decode roles",
+    "fleet_kv": "item 10e, fleet KV plane",
+    "role": "item 10e, disaggregated prefill/decode roles",
 }
+#: per-queued-item service estimate feeding the backlog-derived
+#: Retry-After on a tier shed
+_TIER_ITEM_MS = {TIER_INTERACTIVE: 50.0, TIER_BATCH: 250.0}
+#: the kernels a captured graph records: name -> the wrapper's count of
+#: launches the calling thread recorded under capture
+_CAPTURED_LAUNCHES = {"paged_decode": paged.captured_launches,
+                      "flash_fwd": flash.captured_launches}
 
 
 def _not_ported(option: str) -> NotImplementedError:
@@ -90,8 +153,9 @@ class GenerationStream:
     `tokens()` yields generated token ids as they are emitted; `result()`
     blocks until the stream finishes and returns the generated list;
     `full_sequence()` is prompt + generated. `finish_reason` is "eos",
-    "max_tokens", "cancelled", "deadline_exceeded" or "error" once
-    done."""
+    "max_tokens", "cancelled", "deadline_exceeded", "preempted" (a batch
+    slot evicted for an interactive arrival; error stays None) or
+    "error" once done."""
 
     def __init__(self, prompt: Sequence[int], max_tokens: int,
                  eos_id: Optional[int],
@@ -100,6 +164,13 @@ class GenerationStream:
         self.max_tokens = int(max_tokens)
         self.eos_id = None if eos_id is None else int(eos_id)
         self.deadline = deadline
+        #: False = neither matches nor seeds the shared prefix cache
+        self.prefix_cache = True
+        #: False = no drafts for this request (its slot rides every
+        #: verify round at width 1)
+        self.speculation = True
+        #: SLO tier: "interactive" or "batch"
+        self.tier = TIER_INTERACTIVE
         self.finish_reason: Optional[str] = None
         self.error: Optional[BaseException] = None
         self._generated: List[int] = []
@@ -138,6 +209,10 @@ class GenerationStream:
             yield item
 
     @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    @property
     def cancelled(self) -> bool:
         return self._cancelled.is_set()
 
@@ -168,7 +243,8 @@ class GenerationStream:
 
 
 class _Slot:
-    __slots__ = ("stream", "pages", "awaiting_first", "emitted", "stop_len")
+    __slots__ = ("stream", "pages", "awaiting_first", "emitted", "stop_len",
+                 "no_cache")
 
     def __init__(self, stream: GenerationStream, pages: List[int],
                  stop_len: int):
@@ -178,6 +254,22 @@ class _Slot:
         self.awaiting_first = True
         self.emitted = 0          # tokens pushed onto the stream so far
         self.stop_len = stop_len  # final length: prompt + max_tokens - 1
+        #: pages forked by copy-on-write: they never seed the cache
+        self.no_cache: set = set()
+
+
+class _Graph:
+    """One captured step, the kernel launches each replay makes (per
+    kernel name) and the wall milliseconds its warm-up and capture
+    took."""
+
+    __slots__ = ("graph", "launches", "replays", "capture_ms")
+
+    def __init__(self, graph, launches: dict, capture_ms: float):
+        self.graph = graph
+        self.launches = launches
+        self.replays = 0
+        self.capture_ms = capture_ms
 
 
 class DecodeLoop:
@@ -187,33 +279,47 @@ class DecodeLoop:
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 max_waiting: Optional[int] = None, kernel: str = "auto",
-                 device=None, horizon: int = 1, prefix_cache: bool = False,
-                 speculation: int = 0, fleet_kv: str = "off",
-                 role: str = "unified", batch_share: Optional[float] = None,
+                 horizon: int = 1, max_waiting: Optional[int] = None,
+                 prefix_cache: bool = True, fleet_kv: str = "off",
+                 kernel: str = "auto", speculation: int = 0,
+                 drafter: str = "ngram", draft_params=None, draft_cfg=None,
+                 draft_window: int = 32, ngram: int = 3,
+                 batch_share: float = 0.5,
                  batch_max_waiting: Optional[int] = None,
-                 start: bool = True):
-        if prefix_cache:
-            raise _not_ported("prefix_cache")
-        if speculation:
-            raise _not_ported("speculation")
-        if horizon != 1:
-            raise _not_ported("horizon")
+                 role: str = "unified", device=None, start: bool = True):
         if fleet_kv != "off":
             raise _not_ported("fleet_kv")
         if role != "unified":
             raise _not_ported("role")
-        if batch_share is not None or batch_max_waiting is not None:
-            raise _not_ported("tier")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if horizon < 1:
+            raise ValueError(f"horizon must be >= 1, got {horizon}")
+        if speculation < 0:
+            raise ValueError(
+                f"speculation must be >= 0, got {speculation}")
+        if speculation and horizon > 1:
+            raise ValueError(
+                "speculation and horizon>1 are mutually exclusive: "
+                "speculation replaces the horizon chain with "
+                "draft-and-verify chunking (pick one)")
         if max_waiting is not None and max_waiting < 0:
             raise ValueError(f"max_waiting must be >= 0, got {max_waiting}")
+        if not 0.0 < batch_share <= 1.0:
+            raise ValueError(
+                f"batch_share must be in (0, 1], got {batch_share}")
+        if batch_max_waiting is not None and batch_max_waiting < 0:
+            raise ValueError(
+                f"batch_max_waiting must be >= 0, got {batch_max_waiting}")
         self.device = default_device(device)
         self.cfg = cfg
         self.params = params_to_device(params, self.device)
+        self.role = role
         self.slots = int(slots)
         self.page_size = int(page_size)
+        self.horizon = int(horizon)
+        #: drafts per verify round (0 = speculation off)
+        self.spec_k = int(speculation)
         self.kernel_requested = kernel
         self.decode_kernel = resolve_decode_kernel(kernel, cfg,
                                                    self.page_size,
@@ -224,38 +330,101 @@ class DecodeLoop:
             n_pages = self.slots * self._pps
         self.n_pages = int(n_pages)
         #: admission-queue bound: a submit that cannot start now while
-        #: this many requests already wait sheds with OverloadedError
+        #: this many requests of its tier already wait sheds with
+        #: OverloadedError
         self.max_waiting = None if max_waiting is None else int(max_waiting)
+        #: while interactive work is live, batch holds at most this share
+        #: of the slots; with no interactive demand batch soaks them all
+        self.batch_share = float(batch_share)
+        self._batch_slot_cap = max(1, int(round(self.slots
+                                                * self.batch_share)))
+        #: the batch lane's own (lower) admission-queue bound; defaults
+        #: to half the interactive bound
+        if batch_max_waiting is not None:
+            self.batch_max_waiting: Optional[int] = int(batch_max_waiting)
+        elif self.max_waiting is not None:
+            self.batch_max_waiting = self.max_waiting // 2
+        else:
+            self.batch_max_waiting = None
+        self._tier_waiting = {t: 0 for t in TIERS}
         self._buckets = prompt_buckets(cfg, self.page_size)
 
         # device state ------------------------------------------------
-        self._pool = init_paged_pool(cfg, self.n_pages, self.page_size,
-                                     self.device)
+        S, P, dev = self.slots, self._pps, self.device
+        self._pool = init_paged_pool(cfg, self.n_pages, self.page_size, dev)
         self._trash = self._pool.trash_page
-        self._d_tokens = None       # (S,) int32
-        self._d_table = None        # (S, P) int32
-        self._d_lengths = None      # (S,) int32
-        self._d_stop = None         # (S,) int32
-        # host mirrors (scheduler-thread-owned) -----------------------
-        self._table = np.full((self.slots, self._pps), self._trash, np.int32)
-        self._lengths = np.zeros((self.slots,), np.int32)
-        self._stop = np.zeros((self.slots,), np.int32)
-        self._pending = np.zeros((self.slots,), np.int32)
+        # every control array of the step lives in ONE host buffer and
+        # ONE persistent device buffer (views below), so an upload is
+        # one synchronous copy into storage a captured graph reads
+        self._h_ctrl = np.zeros((S * (3 + P),), np.int32)
+        self._d_ctrl = torch.zeros((S * (3 + P),), dtype=torch.int32,
+                                   device=dev)
+        self._pending, self._lengths, self._stop, self._table = \
+            self._ctrl_views(self._h_ctrl, S, P)
+        self._table[:] = self._trash
+        self._d_tokens, self._d_lengths, self._d_stop, self._d_table = \
+            self._ctrl_views(self._d_ctrl, S, P)
+        #: the step chain's tokens, (horizon, S)
+        self._d_out = torch.zeros((self.horizon, S), dtype=torch.int32,
+                                  device=dev)
         self._dirty = True          # mirrors changed since last upload
         self._free: deque = deque(range(self.n_pages))
         self._slot_state: List[Optional[_Slot]] = [None] * self.slots
         #: prefill-group first tokens still on the device:
         #: [(device (B,) tensor, [(row, slot_idx), ...])]
         self._deferred: List = []
+        # prefix sharing: per-page reader refcounts + the chunk trie
+        self.prefix_cache_enabled = bool(prefix_cache)
+        self._prefix: Optional[PrefixIndex] = (
+            PrefixIndex(self.page_size) if self.prefix_cache_enabled
+            else None)
+        self._ref = np.zeros((self.n_pages,), np.int32)
+
+        # speculative decoding ----------------------------------------
+        self._drafter = None
+        if self.spec_k:
+            corpus = ((lambda: self._prefix.iter_sequences())
+                      if self._prefix is not None else None)
+            self._drafter = build_drafter(
+                drafter, k=self.spec_k, cfg=cfg, draft_params=draft_params,
+                draft_cfg=draft_cfg, draft_window=draft_window, ngram=ngram,
+                corpus=corpus, device=self.device)
+            W = self.spec_k + 1
+            # verify inputs: tokens (S, W), lengths, widths, table
+            self._vh_ctrl = np.zeros((S * (W + 2 + P),), np.int32)
+            self._vd_ctrl = torch.zeros((S * (W + 2 + P),),
+                                        dtype=torch.int32, device=dev)
+            self._v_out = torch.zeros((S, W), dtype=torch.int32, device=dev)
+
+        # the step's captured graphs (CUDA) or eager shapes run (CPU) --
+        #: capture the steps as CUDA graphs (always on a CUDA device);
+        #: chip_smoke.py clears it to compare the eager step on the card
+        self._capture = self.device.type == "cuda"
+        self._graphs: dict = {}
+        self._graph_pool = None
+        self._eager_shapes: set = set()
+
         # counters ------------------------------------------------------
         self._prefill_token_count = 0
-        #: (batch bucket, prompt bucket) of every prefill group run
+        #: (batch bucket, prompt bucket) of every cold prefill group and
+        #: (batch bucket, cached-page bucket, tail bucket) of every warm one
         self._prefill_groups: set = set()
+        self._prefill_ctx_groups: set = set()
         self._counts = {"requests": 0, "tokens_streamed": 0, "shed": 0,
                         "deadline_exceeded": 0, "cancelled": 0,
                         "admission_waits": 0, "dispatches": 0}
-        #: wall seconds of recent decode steps, dispatch through the
-        #: token copy to the host
+        self._prefix_counts = {"hits": 0, "misses": 0, "forks": 0,
+                               "evictions": 0}
+        self._spec_counts = {"proposed": 0, "accepted": 0, "rounds": 0}
+        self._tier_requests = {t: 0 for t in TIERS}
+        self._tier_shed = {t: 0 for t in TIERS}
+        self._preemptions = 0
+        #: KV bytes the decode attention read must touch, summed over
+        #: token steps: "kernel" = written pages, "gather" = the dense
+        #: window (decode_read_bytes)
+        self._kv_read = {"kernel": 0, "gather": 0}
+        #: wall seconds of recent dispatches, through the token copy to
+        #: the host (each covers `horizon` token steps, or one verify)
         self.step_seconds: deque = deque(maxlen=4096)
 
         # queueing / lifecycle ----------------------------------------
@@ -269,7 +438,32 @@ class DecodeLoop:
                                             name="decode-loop")
             self._thread.start()
 
+    @staticmethod
+    def _ctrl_views(buf, s: int, p: int):
+        """(tokens (S,), lengths (S,), stop (S,), table (S, P)) views of
+        one flat control buffer, numpy or torch."""
+        return (buf[:s], buf[s:2 * s], buf[2 * s:3 * s],
+                buf[3 * s:].reshape(s, p))
+
+    def _verify_views(self, buf):
+        """(tokens (S, W), lengths (S,), widths (S,), table (S, P)) views
+        of the flat verify buffer, numpy or torch."""
+        s, w, p = self.slots, self.spec_k + 1, self._pps
+        return (buf[:s * w].reshape(s, w), buf[s * w:s * w + s],
+                buf[s * w + s:s * w + 2 * s],
+                buf[s * (w + 2):].reshape(s, p))
+
     # ----------------------------------------------------- public API
+    @staticmethod
+    def _per_row(value, n_rows: int, name: str) -> List[int]:
+        """A scalar-or-per-row int parameter as one int per row."""
+        if isinstance(value, (list, tuple, np.ndarray)):
+            if len(value) != n_rows:
+                raise ValueError(f"per-row {name} needs {n_rows} entries, "
+                                 f"got {len(value)}")
+            return [int(v) for v in value]
+        return [int(value)] * n_rows
+
     def validate(self, prompt, max_tokens: int) -> np.ndarray:
         """Check one request without enqueueing it (raises ValueError);
         returns the normalized 1-D prompt."""
@@ -294,49 +488,72 @@ class DecodeLoop:
 
     def submit(self, prompt, max_tokens: int, eos_id: Optional[int] = None,
                deadline: Optional[Deadline] = None,
+               prefix_cache: bool = True, speculation: bool = True,
                tier: str = TIER_INTERACTIVE) -> GenerationStream:
         """Queue one prompt (1-D int sequence). The stream's first token
         arrives after admission + prefill; termination on EOS (when
-        given), `max_tokens`, cancellation or the deadline."""
+        given), `max_tokens`, cancellation or the deadline.
+        `prefix_cache=False` neither reuses nor seeds the prefix cache;
+        `speculation=False` opts out of drafting; `tier="batch"` rides
+        the preemptible bulk lane."""
         return self.submit_many([prompt], max_tokens, eos_id,
-                                deadline=deadline, tier=tier)[0]
+                                deadline=deadline, prefix_cache=prefix_cache,
+                                speculation=speculation, tier=tier)[0]
 
-    def submit_many(self, prompts, max_tokens: int,
-                    eos_id: Optional[int] = None,
+    def submit_many(self, prompts, max_tokens, eos_id: Optional[int] = None,
                     deadline: Optional[Deadline] = None,
+                    prefix_cache: bool = True, speculation: bool = True,
                     tier: str = TIER_INTERACTIVE) -> List[GenerationStream]:
-        """Admit several rows as ONE unit: all rows enqueue or none do."""
-        if tier != TIER_INTERACTIVE:
-            raise _not_ported("tier")
+        """Admit several rows as ONE unit: all rows enqueue or none do.
+        `max_tokens` is one scalar for every row or a per-row sequence.
+        `tier` applies to the whole group; a shed carries the tier and a
+        Retry-After derived from that tier's backlog."""
+        if tier not in TIERS:
+            raise ValueError(f"unknown tier {tier!r} (expected one of "
+                             f"{TIERS})")
         if deadline is not None and deadline.expired:
             with self._cond:
                 self._counts["deadline_exceeded"] += 1
             deadline.check("decode admission")  # raises
-        prompts = [self.validate(p, max_tokens) for p in prompts]
-        streams = [GenerationStream(p, max_tokens, eos_id, deadline=deadline)
-                   for p in prompts]
+        per_row_max = self._per_row(max_tokens, len(prompts), "max_tokens")
+        prompts = [self.validate(p, mt) for p, mt in zip(prompts,
+                                                         per_row_max)]
+        streams = [GenerationStream(p, mt, eos_id, deadline=deadline)
+                   for p, mt in zip(prompts, per_row_max)]
         loop_ref = weakref.ref(self)
         for stream in streams:
             stream._loop_ref = loop_ref
+            stream.prefix_cache = bool(prefix_cache)
+            stream.speculation = bool(speculation)
+            stream.tier = tier
         with self._cond:
             if self._closed:
                 raise RuntimeError("decode loop is closed")
-            if self.max_waiting is not None:
+            bound = (self.batch_max_waiting if tier == TIER_BATCH
+                     else self.max_waiting)
+            if bound is not None:
+                # a group that could start right now is never rejected
                 need = sum(pages_for_tokens(p.size + 1, self.page_size)
                            for p in prompts)
                 free_slots = sum(1 for s in self._slot_state if s is None)
-                can_now = (not self._waiting and len(self._free) >= need
+                can_now = (not self._waiting
+                           and self._avail_pages() >= need
                            and free_slots >= len(prompts))
-                if (not can_now
-                        and len(self._waiting) + len(prompts)
-                        > self.max_waiting):
+                tier_q = self._tier_waiting[tier]
+                if not can_now and tier_q + len(prompts) > bound:
                     self._counts["shed"] += 1
+                    self._tier_shed[tier] += 1
                     raise OverloadedError(
-                        f"decode admission queue full "
-                        f"({len(self._waiting)} waiting, "
-                        f"{len(self._free)}/{self.n_pages} pages free)")
+                        f"decode admission queue full for tier {tier!r} "
+                        f"({tier_q} waiting, "
+                        f"{len(self._free)}/{self.n_pages} pages free)",
+                        retry_after_ms=backlog_retry_ms(
+                            tier_q + len(prompts), _TIER_ITEM_MS[tier]),
+                        tier=tier)
             self._counts["requests"] += len(streams)
+            self._tier_requests[tier] += len(streams)
             self._waiting.extend(streams)
+            self._tier_waiting[tier] += len(streams)
             self._cond.notify_all()
         return streams
 
@@ -348,11 +565,69 @@ class DecodeLoop:
 
     @property
     def pages_in_use(self) -> int:
-        return self.n_pages - len(self._free)
+        """Pages held by in-flight requests (refcount > 0); cached but
+        unreferenced pages are not in use."""
+        return int(np.count_nonzero(self._ref))
 
     @property
     def pages_free(self) -> int:
         return len(self._free)
+
+    @property
+    def pages_cached(self) -> int:
+        """Pages retained by the prefix index."""
+        return 0 if self._prefix is None else len(self._prefix)
+
+    @property
+    def pages_shared(self) -> int:
+        """Pages an in-flight slot may not write in place: >= 2 readers,
+        or >= 1 reader while the cache retains the page."""
+        shared = int(np.count_nonzero(self._ref >= 2))
+        if self._prefix is not None:
+            shared += sum(1 for p in self._prefix.pages()
+                          if self._ref[p] == 1)
+        return shared
+
+    def _cached_unref(self) -> int:
+        """The evictable LRU tier: cache-retained pages no slot reads."""
+        if self._prefix is None:
+            return 0
+        return sum(1 for p in self._prefix.pages() if self._ref[p] == 0)
+
+    def _avail_pages(self) -> int:
+        """Pages an allocation could obtain now: free + evictable."""
+        return len(self._free) + self._cached_unref()
+
+    def _alloc_page(self) -> Optional[int]:
+        """Take one page for a new reader (ref -> 1): from the free list,
+        else by LRU-evicting an unreferenced cached page. None when
+        neither has one (callers stall)."""
+        if self._free:
+            page = self._free.popleft()
+        elif self._prefix is not None:
+            page = self._prefix.evict_lru(lambda p: self._ref[p] == 0)
+            if page is not None:
+                self._prefix_counts["evictions"] += 1
+        else:
+            page = None
+        if page is not None:
+            self._ref[page] += 1
+        return page
+
+    def _release_page(self, page: int) -> None:
+        """Drop one reader; the page returns to the free list only when
+        the last reader is gone and the cache does not retain it."""
+        self._ref[page] -= 1
+        if self._ref[page] < 0:
+            raise AssertionError(f"page {page} refcount underflow")
+        if self._ref[page] == 0 and (self._prefix is None
+                                     or not self._prefix.owns(page)):
+            self._free.append(page)
+
+    def _is_shared(self, page: int) -> bool:
+        """True when a slot must copy-on-write fork before writing."""
+        return (self._ref[page] > 1
+                or (self._prefix is not None and self._prefix.owns(page)))
 
     @property
     def occupied_slots(self) -> int:
@@ -364,30 +639,103 @@ class DecodeLoop:
         return (self._thread is not None and self._thread.is_alive()
                 and not self._closed)
 
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Accepted / proposed draft tokens over the loop's lifetime (0.0
+        while nothing was proposed)."""
+        proposed = self._spec_counts["proposed"]
+        return self._spec_counts["accepted"] / proposed if proposed else 0.0
+
     def kv_pool_bytes(self) -> int:
         return paged_kv_bytes(self.cfg, self.n_pages, self.page_size)
+
+    def decode_step_programs(self) -> int:
+        """The decode lane's program count: the captured CUDA graphs on
+        the card (1 plain; step + verify = 2 with speculation), the
+        distinct step shapes run on the CPU."""
+        return len(self._graphs) if self._capture else len(
+            self._eager_shapes)
+
+    def prefill_programs(self) -> int:
+        """Distinct cold prefill group shapes run (bounded by the bucket
+        ladder)."""
+        return len(self._prefill_groups)
+
+    def graph_launches(self) -> dict:
+        """Kernel launches made by graph replays since construction, per
+        kernel: replays x the launches recorded in each graph. The
+        wrappers' own `launches` counters never see them."""
+        with self._cond:  # the scheduler thread adds graphs
+            graphs = list(self._graphs.values())
+        return {name: sum(g.replays * g.launches[name] for g in graphs)
+                for name in _CAPTURED_LAUNCHES}
 
     def snapshot(self) -> dict:
         with self._cond:
             return {
-                "role": "unified",
+                "role": self.role,
                 "device": str(self.device),
                 "slots": self.slots,
                 "occupied_slots": self.occupied_slots,
                 "queued": len(self._waiting),
                 "page_size": self.page_size,
-                "horizon": 1,
+                "horizon": self.horizon,
                 "pages_total": self.n_pages,
                 "pages_in_use": self.pages_in_use,
                 "pages_free": self.pages_free,
                 "peak_pages_in_use": self._peak_pages,
                 "pool_bytes": self.kv_pool_bytes(),
                 "max_waiting": self.max_waiting,
+                "tiers": {
+                    "batch_share": self.batch_share,
+                    "batch_slot_cap": self._batch_slot_cap,
+                    "batch_max_waiting": self.batch_max_waiting,
+                    "preemptions": self._preemptions,
+                    "waiting": dict(self._tier_waiting),
+                    "occupied": {
+                        t: sum(1 for s in self._slot_state
+                               if s is not None and s.stream.tier == t)
+                        for t in TIERS},
+                    "requests": dict(self._tier_requests),
+                    "shed": dict(self._tier_shed),
+                },
                 **self._counts,
                 "decode_kernel": {"requested": self.kernel_requested,
-                                  "selected": self.decode_kernel},
+                                  "selected": self.decode_kernel,
+                                  "kv_read_bytes": dict(self._kv_read)},
+                "decode_step_programs": self.decode_step_programs(),
+                "decode_graphs": {
+                    "captured": sorted(self._graphs),
+                    "replays": {n: g.replays
+                                for n, g in self._graphs.items()},
+                    "capture_ms": {n: g.capture_ms
+                                   for n, g in self._graphs.items()},
+                    "kernel_launches": self.graph_launches(),
+                },
+                "prefill_programs": self.prefill_programs(),
+                "prefill_ctx_programs": len(self._prefill_ctx_groups),
                 "prefill_groups": sorted(self._prefill_groups),
                 "prefill_tokens": self._prefill_token_count,
+                "prefix_cache": {
+                    "enabled": self.prefix_cache_enabled,
+                    **self._prefix_counts,
+                    "pages_cached": self.pages_cached,
+                    "pages_shared": self.pages_shared,
+                    "cached_unreferenced": self._cached_unref(),
+                    "nodes": self.pages_cached,
+                },
+                "fleet_kv": {"mode": "off"},
+                "speculation": {
+                    "enabled": bool(self.spec_k),
+                    "k": self.spec_k,
+                    "drafter": (None if self._drafter is None
+                                else self._drafter.kind),
+                    **self._spec_counts,
+                    "acceptance_rate": self.spec_acceptance_rate,
+                    "draft_programs": (
+                        self._drafter.draft_programs()
+                        if hasattr(self._drafter, "draft_programs") else 0),
+                },
             }
 
     def close(self, timeout: float = 30.0) -> None:
@@ -430,27 +778,33 @@ class DecodeLoop:
             self._deferred = []
             for i, slot in enumerate(self._slot_state):
                 if slot is not None:
-                    self._free.extend(slot.pages)
+                    for page in slot.pages:
+                        self._release_page(page)
                     slot.stream._finish("error", exc)
                     self._slot_state[i] = None
             while self._waiting:
-                self._waiting.popleft()._finish("error", exc)
+                stream = self._waiting.popleft()
+                self._tier_waiting[stream.tier] -= 1
+                stream._finish("error", exc)
             self._dirty = True
 
     def tick(self) -> bool:
         """One scheduler pass: reap, admit what fits, grant boundary
-        pages, run one decode step if any slot can advance, emit tokens,
-        retire finished slots. Returns True if a step ran. Public so
+        pages, run one dispatch if any slot can advance, emit tokens,
+        retire finished slots. Returns True if a dispatch ran. Public so
         tests (and `start=False` callers) can drive the loop."""
         self._reap()
         self._admit()
-        ran = self._dispatch_plain()
+        ran = self._dispatch_spec() if self.spec_k else \
+            self._dispatch_plain()
         if not ran:
-            # no step ran (e.g. every admitted request has max_tokens=1):
-            # deferred prefill tokens still must reach their streams
+            # no dispatch ran (e.g. every admitted request has
+            # max_tokens=1): deferred prefill tokens still must reach
+            # their streams
             self._flush_first_tokens()
             with self._cond:
-                stuck = (self.occupied_slots > 0 and not self._free
+                stuck = (self.occupied_slots > 0
+                         and self._avail_pages() == 0
                          and all(s is None
                                  or self._stop[i] <= self._lengths[i]
                                  for i, s in enumerate(self._slot_state)))
@@ -494,22 +848,52 @@ class DecodeLoop:
                                      .elapsed_ms()))
 
     # ---- admission
+    def _preempt_one(self, used: set) -> bool:
+        """Evict ONE batch slot so a blocked interactive admission can
+        proceed: the batch slot with the fewest tokens emitted retires
+        with finish_reason "preempted" (its full prompt pages seed the
+        prefix cache). Returns True when a victim was retired. Caller
+        holds the lock."""
+        victim = None
+        for i, slot in enumerate(self._slot_state):
+            if slot is None or slot.stream.tier != TIER_BATCH:
+                continue
+            if victim is None or (slot.emitted
+                                  < self._slot_state[victim].emitted):
+                victim = i
+        if victim is None:
+            return False
+        self._preemptions += 1
+        self._retire(victim, self._slot_state[victim], "preempted")
+        used.discard(victim)
+        return True
+
     def _admit(self) -> None:
         ps = self.page_size
-        admitted = []  # (slot_idx, stream, pages, plen)
+        admitted = []  # (slot_idx, stream, pages, plen, covered)
         with self._cond:
             used = {i for i, s in enumerate(self._slot_state)
                     if s is not None}
+            batch_held = sum(1 for s in self._slot_state
+                             if s is not None and s.stream.tier == TIER_BATCH)
+            inter_held = len(used) - batch_held
             while self._waiting:
-                stream = self._waiting[0]
+                # every interactive arrival goes ahead of every batch one
+                # (FIFO within a tier)
+                stream = next((s for s in self._waiting
+                               if s.tier == TIER_INTERACTIVE),
+                              self._waiting[0])
+                interactive = stream.tier == TIER_INTERACTIVE
                 # queue-expired or cancelled work is shed before prefill
                 if stream.cancelled:
-                    self._waiting.popleft()
+                    self._waiting.remove(stream)
+                    self._tier_waiting[stream.tier] -= 1
                     self._counts["cancelled"] += 1
                     stream._finish("cancelled")
                     continue
                 if stream.deadline is not None and stream.deadline.expired:
-                    self._waiting.popleft()
+                    self._waiting.remove(stream)
+                    self._tier_waiting[stream.tier] -= 1
                     self._counts["deadline_exceeded"] += 1
                     stream._finish(
                         "deadline_exceeded", DeadlineExceededError(
@@ -517,48 +901,137 @@ class DecodeLoop:
                             "slot", deadline_ms=stream.deadline.budget_ms,
                             elapsed_ms=stream.deadline.elapsed_ms()))
                     continue
-                idx = next((i for i in range(self.slots) if i not in used),
-                           None)
-                plen = len(stream.prompt)
-                # prompt pages + room for the first decode write
-                if (idx is None
-                        or len(self._free) < pages_for_tokens(plen + 1, ps)):
+                if (not interactive and batch_held >= self._batch_slot_cap
+                        and inter_held > 0):
+                    # weighted-fair share while interactive work is live
                     self._counts["admission_waits"] += 1
                     break
-                self._waiting.popleft()
+                plen = len(stream.prompt)
+                idx = next((i for i in range(self.slots) if i not in used),
+                           None)
+                while (idx is None and interactive
+                       and self._preempt_one(used)):
+                    batch_held -= 1
+                    idx = next((i for i in range(self.slots)
+                                if i not in used), None)
+                if idx is None:
+                    self._counts["admission_waits"] += 1
+                    break
+                # the longest cached run of FULL chunks is mapped by
+                # reference; only the uncovered tail is prefilled
+                use_cache = self._prefix is not None and stream.prefix_cache
+                matched = self._prefix.match(stream.prompt) if use_cache \
+                    else []
+                covered = len(matched) * ps
+                # reference the cached run FIRST, so no eviction below can
+                # take the pages this request is about to read
+                for page in matched:
+                    self._ref[page] += 1
+                # uncovered prompt pages + room for the first decode write
+                need = pages_for_tokens(plen + 1, ps) - len(matched)
+                while (self._avail_pages() < need and interactive
+                       and self._preempt_one(used)):
+                    batch_held -= 1
+                if self._avail_pages() < need:
+                    for page in matched:
+                        self._release_page(page)
+                    self._counts["admission_waits"] += 1
+                    break
+                self._waiting.remove(stream)
+                self._tier_waiting[stream.tier] -= 1
+                if interactive:
+                    inter_held += 1
+                else:
+                    batch_held += 1
                 used.add(idx)
-                pages = [self._free.popleft()
-                         for _ in range(pages_for_tokens(plen, ps))]
-                admitted.append((idx, stream, pages, plen))
+                pages = list(matched)
+                for _ in range(pages_for_tokens(plen, ps) - len(matched)):
+                    page = self._alloc_page()
+                    if page is None:
+                        raise AssertionError("page allocation failed after "
+                                             "the availability check")
+                    pages.append(page)
+                if use_cache:
+                    self._prefix_counts["hits" if matched else "misses"] += 1
+                admitted.append((idx, stream, pages, plen, covered))
             if admitted:
                 self._peak_pages = max(self._peak_pages, self.pages_in_use)
         if not admitted:
             return
+        cold = [a for a in admitted if a[4] == 0]
+        warm = [a for a in admitted if 0 < a[4] < a[3]]
+        full = [a for a in admitted if a[4] >= a[3]]
+        # fully covered prompts skip prefill: the slot starts one position
+        # early with its last prompt token pending, so the first decode
+        # dispatch recomputes position plen-1 (its K/V write re-enters the
+        # last shared page, which the CoW guard forks) and emits the
+        # first token
+        for idx, stream, pages, plen, _cov in full:
+            slot = _Slot(stream, pages, stop_len=plen + stream.max_tokens - 1)
+            slot.awaiting_first = False
+            with self._cond:
+                self._slot_state[idx] = slot
+                self._table[idx, :len(pages)] = pages
+                self._lengths[idx] = plen - 1
+                self._pending[idx] = stream.prompt[-1]
+                self._stop[idx] = 0  # set by _grant_pages
+                self._dirty = True
         # one prefill per (prompt-bucket, batch-bucket) group: an
         # admission burst costs O(groups) dispatches, not O(streams). The
         # first tokens stay on the device until the next flush.
         by_bucket: dict = {}
-        for item in admitted:
+        for item in cold:
             tb = next(b for b in self._buckets if b >= item[3])
             by_bucket.setdefault(tb, []).append(item)
         for tb, group in by_bucket.items():
-            bb = 1
-            while bb < len(group):
-                bb *= 2
+            bb = _pow2(len(group))
             padded = np.zeros((bb, tb), np.int32)
             lens = np.ones((bb,), np.int32)  # pad rows: true_len 1
             pids = np.full((bb, tb // ps), self._trash, np.int32)
-            for row, (idx, stream, pages, plen) in enumerate(group):
+            for row, (idx, stream, pages, plen, _cov) in enumerate(group):
                 padded[row, :plen] = stream.prompt
                 lens[row] = plen
                 pids[row, :len(pages)] = pages
                 self._prefill_token_count += plen
             self._prefill_groups.add((bb, tb))
-            logits, self._pool = paged_prefill(
+            logits, _ = paged_prefill(
                 self.params, self._to_device(padded), self._to_device(lens),
                 self._pool, self._to_device(pids), self.cfg)
-            first = torch.argmax(logits, dim=-1).to(torch.int32)
-            self._install_prefilled(group, first)
+            self._install_prefilled(group,
+                                    torch.argmax(logits, dim=-1)
+                                    .to(torch.int32))
+        # warm tails ride the ctx-aware prefill, bucketed by (cached
+        # pages, tail length); tails start on a page boundary
+        by_ctx: dict = {}
+        for item in warm:
+            idx, stream, pages, plen, covered = item
+            cb = min(_pow2(covered // ps), self._pps)
+            tb = next(b for b in self._buckets if b >= plen - covered)
+            by_ctx.setdefault((cb, tb), []).append(item)
+        for (cb, tb), group in by_ctx.items():
+            bb = _pow2(len(group))
+            padded = np.zeros((bb, tb), np.int32)
+            lens = np.ones((bb,), np.int32)
+            pids = np.full((bb, tb // ps), self._trash, np.int32)
+            ctab = np.full((bb, cb), self._trash, np.int32)
+            clen = np.zeros((bb,), np.int32)
+            for row, (idx, stream, pages, plen, cov) in enumerate(group):
+                cp = cov // ps
+                tl = plen - cov
+                padded[row, :tl] = stream.prompt[cov:]
+                lens[row] = tl
+                pids[row, :len(pages) - cp] = pages[cp:]
+                ctab[row, :cp] = pages[:cp]
+                clen[row] = cov
+                self._prefill_token_count += tl
+            self._prefill_ctx_groups.add((bb, cb, tb))
+            logits, _ = paged_prefill_ctx(
+                self.params, self._to_device(padded), self._to_device(lens),
+                self._pool, self._to_device(pids), self._to_device(ctab),
+                self._to_device(clen), self.cfg)
+            self._install_prefilled(group,
+                                    torch.argmax(logits, dim=-1)
+                                    .to(torch.int32))
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -567,7 +1040,7 @@ class DecodeLoop:
         """Install slots for one prefill group; first tokens stay on the
         device until the next flush (`self._deferred`)."""
         members = []
-        for row, (idx, stream, pages, plen) in enumerate(group):
+        for row, (idx, stream, pages, plen, _cov) in enumerate(group):
             slot = _Slot(stream, pages, stop_len=plen + stream.max_tokens - 1)
             members.append((row, idx))
             with self._cond:
@@ -581,60 +1054,167 @@ class DecodeLoop:
 
     # ---- page granting
     def _grant_pages(self) -> None:
-        """Before a step: give every occupied slot a page covering its
-        next position (capped at its token budget) and set its device
-        `stop` bound to the granted frontier — a slot the pool cannot
-        extend stops advancing there."""
+        """Before a dispatch: give every occupied slot pages covering its
+        next advance window (`horizon` plain steps, or the `spec_k` + 1
+        verify width, capped at its token budget), fork every shared page
+        in that window, and set its device `stop` bound to the granted
+        frontier — a slot the pool cannot extend stops advancing there."""
+        adv = (self.spec_k + 1) if self.spec_k else self.horizon
         with self._cond:
             for i, slot in enumerate(self._slot_state):
                 if slot is None:
                     continue
                 length = int(self._lengths[i])
-                target = min(length + 1, slot.stop_len)
+                target = min(length + adv, slot.stop_len)
                 want = pages_for_tokens(target, self.page_size)
-                while len(slot.pages) < want and self._free:
-                    page = self._free.popleft()
+                granted = False
+                while len(slot.pages) < want:
+                    page = self._alloc_page()
+                    if page is None:
+                        break
                     self._table[i, len(slot.pages)] = page
                     slot.pages.append(page)
-                    self._dirty = True
-                self._peak_pages = max(self._peak_pages, self.pages_in_use)
+                    granted = True
+                if granted:
+                    self._peak_pages = max(self._peak_pages,
+                                           self.pages_in_use)
                 stop = min(slot.stop_len, len(slot.pages) * self.page_size)
+                if stop > length:
+                    stop = self._cow_guard(i, slot, length, stop)
                 if stop <= length and slot.stop_len > length:
                     self._counts["admission_waits"] += 1  # page-starved
                 if stop != self._stop[i]:
                     self._stop[i] = stop
                     self._dirty = True
 
-    # ---- one decode step
-    def _step(self):
-        """One decode step on the device. Per-slot activity is
-        `lengths < stop`: a slot out of budget or out of allocated pages
-        holds still exactly where it should."""
-        act = self._d_lengths < self._d_stop
-        logits, self._pool = paged_decode_step(
-            self.params, self._d_tokens, self._pool, self._d_table,
-            self._d_lengths, act, self.cfg, kernel=self.decode_kernel)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        self._d_tokens = torch.where(act, nxt, self._d_tokens)
-        self._d_lengths = self._d_lengths + act.to(torch.int32)
-        return nxt
+    def _cow_guard(self, i: int, slot: _Slot, length: int,
+                   stop: int) -> int:
+        """Copy-on-write fence: positions [length, stop) are about to be
+        written, so every page there still shared (another reader, or
+        retained by the cache) is forked into a private copy first. When
+        no page can be had for a fork, the slot's stop clamps to the
+        shared frontier. Caller holds the lock."""
+        ps = self.page_size
+        for j in range(length // ps, (stop - 1) // ps + 1):
+            page = slot.pages[j]
+            if not self._is_shared(page):
+                continue
+            new = self._alloc_page()
+            if new is None:
+                return max(length, j * ps)
+            try:
+                copy_page(self._pool, page, new)
+            except BaseException:
+                self._release_page(new)
+                raise
+            slot.pages[j] = new
+            self._table[i, j] = new
+            slot.no_cache.add(new)
+            self._release_page(page)
+            self._prefix_counts["forks"] += 1
+            self._dirty = True
+        return stop
 
+    # ---- the step programs: eager bodies, captured as CUDA graphs
+    def _step_eager(self) -> None:
+        """`horizon` chained decode steps on the persistent buffers, in
+        place: per-slot activity is `lengths < stop`, so a slot out of
+        budget or out of granted pages holds still exactly where it
+        should. No host sync."""
+        for k in range(self.horizon):
+            act = self._d_lengths < self._d_stop
+            logits, _ = paged_decode_step(
+                self.params, self._d_tokens, self._pool, self._d_table,
+                self._d_lengths, act, self.cfg, kernel=self.decode_kernel)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            self._d_tokens.copy_(torch.where(act, nxt, self._d_tokens))
+            self._d_lengths.add_(act.to(torch.int32))
+            self._d_out[k].copy_(nxt)
+
+    def _verify_eager(self) -> None:
+        """ONE widened verify step on the persistent verify buffers: the
+        argmax after every column lands in `_v_out`."""
+        tokens, lengths, widths, table = self._verify_views(self._vd_ctrl)
+        logits, _ = paged_verify_step(
+            self.params, tokens, self._pool, table, lengths, widths,
+            self.cfg, kernel=self.decode_kernel)
+        self._v_out.copy_(torch.argmax(logits, dim=-1).to(torch.int32))
+
+    def _idle_step(self) -> None:
+        """Make the step's inputs idle (no slot active: every write goes
+        to the trash page) for the capture's warm-up run."""
+        self._d_lengths.zero_()
+        self._d_stop.zero_()
+        self._dirty = True  # the real state is uploaded before a replay
+
+    def _idle_verify(self) -> None:
+        self._verify_views(self._vd_ctrl)[2].zero_()  # widths 0: all trash
+
+    def _run_program(self, name: str) -> None:
+        """Run the step ("step") or verify ("verify") program: replay its
+        graph (captured at first use) on the card, eagerly on the CPU."""
+        body = self._step_eager if name == "step" else self._verify_eager
+        if not self._capture:
+            width = self.horizon if name == "step" else self.spec_k + 1
+            self._eager_shapes.add((name, self.slots, width))
+            body()
+            return
+        g = self._graphs.get(name)
+        if g is None:
+            raise AssertionError(f"{name} graph used before its capture")
+        g.graph.replay()
+        g.replays += 1
+
+    def _ensure_graph(self, name: str) -> None:
+        """Capture the step or verify program once, on the calling
+        (scheduler) thread: a warm-up run on a side stream with idle
+        inputs (it writes only the trash page), then the capture. The
+        wrappers count what this thread records under capture apart from
+        real launches; that count x replays is `graph_launches()`."""
+        if not self._capture or name in self._graphs:
+            return
+        body, idle = ((self._step_eager, self._idle_step) if name == "step"
+                      else (self._verify_eager, self._idle_verify))
+        dev = self.device
+        t0 = time.perf_counter()
+        idle()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = {n: f() for n, f in _CAPTURED_LAUNCHES.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode="thread_local"):
+            body()
+        recorded = {n: f() - before[n] for n, f in _CAPTURED_LAUNCHES.items()}
+        self._graph_pool = graph.pool()
+        with self._cond:  # snapshot() iterates the graphs
+            self._graphs[name] = _Graph(graph, recorded,
+                                        (time.perf_counter() - t0) * 1e3)
+
+    def _upload_step(self) -> None:
+        """Copy every step control array to its persistent device buffer
+        in one synchronous copy: the host mirrors are mutated right
+        after, so the copy must have read them before it returns."""
+        self._d_ctrl.copy_(torch.from_numpy(self._h_ctrl))
+
+    # ---- plain dispatch (horizon token steps)
     def _dispatch_plain(self) -> bool:
         self._grant_pages()
+        self._ensure_graph("step")
         with self._cond:
             runnable = [i for i, s in enumerate(self._slot_state)
                         if s is not None and self._stop[i] > self._lengths[i]]
             if not runnable:
                 return False
             before = self._lengths.copy()
-            if self._dirty or self._d_tokens is None:
-                self._d_tokens = self._to_device(self._pending)
-                self._d_table = self._to_device(self._table)
-                self._d_lengths = self._to_device(self._lengths)
-                self._d_stop = self._to_device(self._stop)
+            if self._dirty:
+                self._upload_step()
                 self._dirty = False
             # overlay deferred prefill tokens (still on the device) into
-            # the feedback tensor — one scatter per prefill group
+            # the persistent feedback buffer — one scatter per group
             for arr, members in self._deferred:
                 rows = torch.tensor([r for r, _ in members],
                                     device=self.device)
@@ -642,21 +1222,144 @@ class DecodeLoop:
                                     device=self.device)
                 self._d_tokens[idxs] = arr[rows]
         t0 = time.perf_counter()
-        # the (S,) token copy to the host is the sync the streams need
-        toks = self._step().cpu().numpy()
+        self._run_program("step")
+        # the (K, S) token copy to the host is the sync the streams need
+        toks = self._d_out.cpu().numpy()
         self.step_seconds.append(time.perf_counter() - t0)
         self._counts["dispatches"] += 1
-        self._flush_first_tokens()  # emit firsts BEFORE step tokens
+        # KV read accounting mirroring the chain: inner step k runs at
+        # cursor before+k, clamped at each slot's stop bound
+        advance = np.maximum(self._stop - before, 0)
+        for k in range(self.horizon):
+            cur = before + np.minimum(k, advance)
+            self._kv_read["kernel"] += decode_read_bytes(self._pool, cur,
+                                                         self._pps)
+            self._kv_read["gather"] += decode_read_bytes(
+                self._pool, cur, self._pps, dense=True)
+        self._flush_first_tokens()  # emit firsts BEFORE chunk tokens
         for i in runnable:
             slot = self._slot_state[i]
             if slot is None:  # retired at flush (eos on first token)
                 continue
+            consumed = min(self.horizon, int(self._stop[i] - before[i]))
             with self._cond:
-                self._lengths[i] = before[i] + 1
-            tok = int(toks[i])
-            self._pending[i] = tok
-            slot.emitted += 1
-            self._emit_and_maybe_finish(i, slot, tok)
+                self._lengths[i] = before[i] + consumed
+            for j in range(consumed):
+                tok = int(toks[j, i])
+                self._pending[i] = tok
+                slot.emitted += 1
+                self._emit_and_maybe_finish(i, slot, tok)
+                if self._slot_state[i] is None:
+                    break  # retired: discard the chain's overshoot
+        return True
+
+    # ---- speculative dispatch (draft k on the host, verify k+1 wide)
+    def _dispatch_spec(self) -> bool:
+        """One draft-and-verify round: flush the deferred firsts, draft
+        on the host, run ONE (S, k+1) verify, accept the longest run
+        matching the target's argmax plus the target's own token, roll
+        back by not moving the cursor past it."""
+        # both graphs up front, so no capture stalls a live round
+        self._ensure_graph("step")
+        self._ensure_graph("verify")
+        if self._deferred:
+            self._flush_first_tokens()
+            self._dirty = True  # firsts never reached the device carry
+        self._grant_pages()
+        with self._cond:
+            runnable = [i for i, s in enumerate(self._slot_state)
+                        if s is not None and self._stop[i] > self._lengths[i]]
+            if not runnable:
+                return False
+            before = self._lengths.copy()
+        W = self.spec_k + 1
+        tokens = np.zeros((self.slots, W), np.int32)
+        widths = np.zeros((self.slots,), np.int32)
+        proposals = {}
+        model_rows = []
+        for i in runnable:
+            slot = self._slot_state[i]
+            tokens[i, 0] = self._pending[i]
+            widths[i] = 1
+            # >= 2 means at least one draft position fits under the
+            # granted/budget frontier
+            room = int(self._stop[i] - before[i])
+            if room < 2 or not slot.stream.speculation:
+                continue
+            if self._drafter.kind == "model":
+                model_rows.append(i)
+            else:
+                history = slot.stream.prompt + slot.stream._generated
+                prop = self._drafter.propose(history,
+                                             min(self.spec_k, room - 1))
+                if prop:
+                    proposals[i] = [int(t) for t in prop]
+        if model_rows:
+            # one fixed-shape (S, window) batch — idle rows ride along
+            win = self._drafter.window
+            windows = np.zeros((self.slots, win), np.int32)
+            for i in model_rows:
+                slot = self._slot_state[i]
+                hist = (slot.stream.prompt + slot.stream._generated)[-win:]
+                windows[i, win - len(hist):] = hist
+            drafted = self._drafter.propose_all(windows, self.spec_k)
+            for i in model_rows:
+                room = int(self._stop[i] - before[i])
+                prop = [int(t) for t in
+                        drafted[i, :min(self.spec_k, room - 1)]]
+                if prop:
+                    proposals[i] = prop
+        if not proposals:
+            # nothing drafted: the plain width-1 step instead
+            return self._dispatch_plain()
+        for i, prop in proposals.items():
+            n = len(prop)
+            tokens[i, 1:1 + n] = prop
+            widths[i] = 1 + n
+            self._spec_counts["proposed"] += n
+        v_tokens, v_lengths, v_widths, v_table = self._verify_views(
+            self._vh_ctrl)
+        v_tokens[:] = tokens
+        v_lengths[:] = before
+        v_widths[:] = widths
+        v_table[:] = self._table
+        t0 = time.perf_counter()
+        self._vd_ctrl.copy_(torch.from_numpy(self._vh_ctrl))
+        self._run_program("verify")
+        out = self._v_out.cpu().numpy()  # (S, W) argmax
+        self.step_seconds.append(time.perf_counter() - t0)
+        self._counts["dispatches"] += 1
+        self._spec_counts["rounds"] += 1
+        # column j of slot i attends at cursor before+j (clamped to its
+        # real width)
+        for j in range(int(widths.max())):
+            cur = before + np.minimum(j, np.maximum(widths - 1, 0))
+            self._kv_read["kernel"] += decode_read_bytes(self._pool, cur,
+                                                         self._pps)
+            self._kv_read["gather"] += decode_read_bytes(
+                self._pool, cur, self._pps, dense=True)
+        for i in runnable:
+            slot = self._slot_state[i]
+            if slot is None:
+                continue
+            prop = proposals.get(i, [])
+            m = 0
+            while m < len(prop) and prop[m] == int(out[i, m]):
+                m += 1
+            with self._cond:
+                self._lengths[i] = before[i] + m + 1
+            if prop:
+                self._spec_counts["accepted"] += m
+            for j in range(m + 1):
+                tok = int(out[i, j])
+                self._pending[i] = tok
+                slot.emitted += 1
+                self._emit_and_maybe_finish(i, slot, tok)
+                if self._slot_state[i] is None:
+                    break  # retired (eos/budget): overshoot discarded
+        # host cursors moved without the plain device carry: a later
+        # plain dispatch must re-upload
+        self._dirty = True
         return True
 
     def _flush_first_tokens(self) -> None:
@@ -694,7 +1397,23 @@ class DecodeLoop:
             self._lengths[idx] = 0
             self._stop[idx] = 0
             self._pending[idx] = 0
-            self._free.extend(slot.pages)
+            if (self._prefix is not None and slot.stream.prefix_cache
+                    and reason in ("eos", "max_tokens", "preempted")):
+                # seed the cache with the FULL prompt pages only; forked
+                # pages never seed (their bytes diverged)
+                n_full = len(slot.stream.prompt) // self.page_size
+                self._prefix.insert(slot.stream.prompt, slot.pages[:n_full],
+                                    skip=slot.no_cache)
+            for page in slot.pages:
+                self._release_page(page)
             self._dirty = True
             self._cond.notify_all()  # admissions may proceed
         slot.stream._finish(reason, error)
+
+
+def _pow2(n: int) -> int:
+    """The smallest power of two >= n (>= 1)."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b

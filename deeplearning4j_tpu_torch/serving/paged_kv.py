@@ -11,12 +11,17 @@ the counterpart of the JAX package's `serving/paged_kv.py`.
   out of attention by the slot's length).
 
 Prefill runs the flash forward kernel (K1); each decode step runs the
-paged decode kernel (K4) or its plain dense-gather version.
+paged decode kernel (K4) or its plain dense-gather version, and so does
+each column of the widened speculative verify step (`paged_verify_step`).
+The prefix cache's warm-tail prefill (`paged_prefill_ctx`) and its
+copy-on-write fork (`copy_page`) are plain torch in both packages: no
+TPU kernel carries them.
 
 The pools are written IN PLACE (`index_put_` through advanced indexing)
 where the JAX package's functional `.at[].set` builds new arrays, so
-`paged_prefill` and `paged_decode_step` return the same pool object they
-were given. Duplicate writes to the trash page (inactive slots, padding
+every function here returns the same pool object it was given, and the
+pool's storage is never reallocated (the decode loop's captured CUDA
+graphs read it at fixed addresses). Duplicate writes to the trash page (inactive slots, padding
 rows) have an unspecified winner in both frameworks; the trash page is
 never read unmasked.
 """
@@ -28,7 +33,7 @@ from typing import List, Tuple
 import torch
 
 from deeplearning4j_tpu_torch import default_device
-from deeplearning4j_tpu_torch.attention.flash import flash_attention
+from deeplearning4j_tpu_torch.attention.flash import NEG_INF, flash_attention
 from deeplearning4j_tpu_torch.attention.paged import (paged_attention,
                                                       paged_attention_ref)
 from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
@@ -37,7 +42,8 @@ from deeplearning4j_tpu_torch.serving.kv_cache import _ffn, _heads
 
 __all__ = ["PagedKVPool", "init_paged_pool", "paged_kv_bytes",
            "pages_per_slot", "pages_for_tokens", "prompt_buckets",
-           "paged_prefill", "paged_decode_step", "decode_read_bytes"]
+           "paged_prefill", "paged_prefill_ctx", "paged_decode_step",
+           "paged_verify_step", "copy_page", "decode_read_bytes"]
 
 
 class PagedKVPool:
@@ -158,6 +164,82 @@ def paged_prefill(params, tokens, true_len, pool: PagedKVPool, page_ids,
     return last_x @ params["embed"].T, pool
 
 
+@torch.no_grad()
+def copy_page(pool: PagedKVPool, src, dst) -> PagedKVPool:
+    """Copy-on-write fork: duplicate ONE physical page (every layer's K
+    and V rows) from pool index `src` into `dst`, in place."""
+    for layer in pool.layers:
+        layer["k"][dst].copy_(layer["k"][src])
+        layer["v"][dst].copy_(layer["v"][src])
+    return pool
+
+
+@torch.no_grad()
+def paged_prefill_ctx(params, tokens, true_len, pool: PagedKVPool,
+                      page_ids, ctx_table, ctx_len, cfg: TransformerConfig):
+    """Prefill a batch of prompt TAILS whose prefix K/V already sits in
+    pool pages (the prefix cache's warm path): row b's tokens are prompt
+    positions `[ctx_len[b], ctx_len[b] + true_len[b])`, its cached prefix
+    occupies the pages in `ctx_table[b]` (trash-padded, masked by
+    `ctx_len`), and its tail K/V scatters into `page_ids[b]` exactly like
+    `paged_prefill`. Returns (logits (B, vocab) at each row's last real
+    tail position, the pool).
+
+    Tails start on a page boundary (only FULL cached chunks are reused).
+    Attention is a masked softmax in float32 over [gathered prefix ‖
+    tail], as in the JAX package: tail queries see every real prefix
+    position plus the causal window of the tail; masked lanes weigh
+    exactly 0. Shared prefix pages are only read."""
+    b, tb = tokens.shape
+    ps = pool.page_size
+    hd = cfg.d_model // cfg.n_heads
+    w_ctx = ctx_table.shape[1] * ps
+    dev = tokens.device
+    ctx_len = ctx_len.long()
+    pos_ids = torch.clamp_max(ctx_len[:, None]
+                              + torch.arange(tb, device=dev), cfg.max_len - 1)
+    x = params["embed"][tokens.long()] + params["pos"][pos_ids]
+    flat_ids = page_ids.reshape(-1).long()
+    ctab = ctx_table.long()
+    # prefix cols real below ctx_len; tail cols causal within the tail
+    m_ctx = (torch.arange(w_ctx, device=dev)[None, :]
+             < ctx_len[:, None])[:, None, None, :]          # (B, 1, 1, Wc)
+    m_self = (torch.arange(tb, device=dev)[None, :]
+              <= torch.arange(tb, device=dev)[:, None])     # (Tb, Tb)
+    scale = 1.0 / float(hd) ** 0.5
+
+    def pages(arr, like):
+        a = arr.to(like.dtype).reshape(b, cfg.n_heads, tb // ps, ps, -1)
+        return a.transpose(1, 2).reshape(b * (tb // ps), cfg.n_heads, ps, -1)
+
+    for p, layer in zip(params["blocks"], pool.layers):
+        h = _layer_norm(p["ln1"], x)
+        q = _heads(h, p["Wq"], cfg)                   # (B, H, Tb, hd)
+        k = _heads(h, p["Wk"], cfg)
+        v = _heads(h, p["Wv"], cfg)
+        # the cached prefix: (B, Pc, H, ps, hd) -> (B, H, Wc, hd)
+        kc = layer["k"][ctab].transpose(1, 2).reshape(b, cfg.n_heads, w_ctx,
+                                                      hd)
+        vc = layer["v"][ctab].transpose(1, 2).reshape(b, cfg.n_heads, w_ctx,
+                                                      hd)
+        qf = q.float()
+        sc_ctx = torch.einsum("bhqd,bhkd->bhqk", qf, kc.float()) * scale
+        sc_self = torch.einsum("bhqd,bhkd->bhqk", qf, k.float()) * scale
+        sc = torch.cat([sc_ctx.masked_fill(~m_ctx, NEG_INF),
+                        sc_self.masked_fill(~m_self, NEG_INF)], dim=-1)
+        wts = torch.softmax(sc, dim=-1)
+        vf = torch.cat([vc.float(), v.float()], dim=2)
+        att = torch.einsum("bhqk,bhkd->bhqd", wts, vf)
+        att = att.to(x.dtype).transpose(1, 2).reshape(b, tb, cfg.d_model)
+        x = x + att @ p["Wo"]
+        x = _ffn(p, x)
+        layer["k"][flat_ids] = pages(k, layer["k"])
+        layer["v"][flat_ids] = pages(v, layer["v"])
+    x = _layer_norm(params["ln_f"], x)
+    last_x = x[torch.arange(b, device=dev), true_len.long() - 1]
+    return last_x @ params["embed"].T, pool
+
+
 def decode_read_bytes(pool: PagedKVPool, lengths, table_width: int, *,
                       dense: bool = False) -> int:
     """Host-side accounting: KV bytes ONE decode token step must read
@@ -235,3 +317,85 @@ def paged_decode_step(params, tokens, pool: PagedKVPool, page_table,
         x = _ffn(p, x)
     x = _layer_norm(params["ln_f"], x)
     return x[:, 0, :] @ params["embed"].T, pool
+
+
+@torch.no_grad()
+def paged_verify_step(params, tokens, pool: PagedKVPool, page_table,
+                      lengths, widths, cfg: TransformerConfig,
+                      kernel: str = "gather"):
+    """The WIDENED decode step speculative verify rides: `tokens` is
+    (S, W) — row s's column j is the token whose K/V belongs at cursor
+    `lengths[s] + j` (column 0 the slot's pending token, columns 1..W-1
+    the drafter's proposals). `widths` (S,) int32 is how many columns of
+    each row are real (0 = idle slot; 1 = a plain step riding along).
+    Returns (logits (S, W, vocab), the pool).
+
+    Every real position writes its K/V through the page table; columns
+    past a row's width, and cursors at or past the window, write to the
+    trash page (their duplicate writes there are harmless: the trash
+    page is never read unmasked). Column j attends to positions
+    `<= lengths + j`, so logits[s, j] is the model's next-token
+    distribution after the prefix extended by proposals 1..j.
+
+    `kernel` mirrors `paged_decode_step`: "gather" runs one widened
+    masked softmax in float32 over the dense window; "kernel" runs
+    `attention.paged.paged_attention` (K4 on the card) once per column,
+    at cursor `min(lengths + j, window - 1)`."""
+    if kernel not in ("gather", "kernel"):
+        raise ValueError(
+            f"kernel must be 'gather' or 'kernel' here (resolve 'auto' "
+            f"via attention.paged.resolve_decode_kernel), got {kernel!r}")
+    s, w = tokens.shape
+    d = cfg.d_model
+    hd = d // cfg.n_heads
+    ps = pool.page_size
+    n_p = page_table.shape[1]
+    window = n_p * ps
+    dev = tokens.device
+    cols = torch.arange(w, device=dev)
+    pos = lengths.long()[:, None] + cols[None, :]            # (S, W)
+    valid = cols[None, :] < widths.long()[:, None]           # (S, W)
+    dest = torch.where(
+        valid & (pos // ps < n_p),
+        torch.gather(page_table.long(), 1, torch.clamp_max(pos // ps,
+                                                           n_p - 1)),
+        torch.full_like(pos, pool.trash_page))
+    offset = pos % ps
+    pos_ids = torch.clamp_max(pos, cfg.max_len - 1)
+    x = params["embed"][tokens.long()] + params["pos"][pos_ids]  # (S, W, d)
+    if kernel == "gather":
+        # column j sees key positions <= lengths + j
+        mask = (torch.arange(window, device=dev)[None, None, :]
+                <= pos[:, :, None])[:, None]                 # (S, 1, W, win)
+        pt = page_table.long()
+        scale = 1.0 / float(hd) ** 0.5
+    for p, layer in zip(params["blocks"], pool.layers):
+        h = _layer_norm(p["ln1"], x)
+        q = _heads(h, p["Wq"], cfg)                          # (S, H, W, hd)
+        # advanced indices (S, W) split by a slice land in front: the
+        # indexed view is (S, W, H, hd)
+        layer["k"][dest, :, offset, :] = _heads(h, p["Wk"], cfg) \
+            .transpose(1, 2).to(layer["k"].dtype)
+        layer["v"][dest, :, offset, :] = _heads(h, p["Wv"], cfg) \
+            .transpose(1, 2).to(layer["v"].dtype)
+        if kernel == "kernel":
+            # one single-query pass per column, each at its own cursor;
+            # q[:, :, j, :] is a strided view, K4 takes contiguous q
+            att = torch.stack([
+                paged_attention(q[:, :, j, :].contiguous(), layer["k"],
+                                layer["v"], page_table,
+                                torch.clamp_max(lengths + j, window - 1))
+                for j in range(w)], dim=2)                   # (S, H, W, hd)
+        else:
+            kg = layer["k"][pt].transpose(1, 2).reshape(s, cfg.n_heads,
+                                                        window, hd)
+            vg = layer["v"][pt].transpose(1, 2).reshape(s, cfg.n_heads,
+                                                        window, hd)
+            sc = torch.einsum("shqd,shkd->shqk", q.float(),
+                              kg.float()) * scale
+            wts = torch.softmax(sc.masked_fill(~mask, NEG_INF), dim=-1)
+            att = torch.einsum("shqk,shkd->shqd", wts, vg.float())
+        x = x + att.to(x.dtype).transpose(1, 2).reshape(s, w, d) @ p["Wo"]
+        x = _ffn(p, x)
+    x = _layer_norm(params["ln_f"], x)
+    return x @ params["embed"].T, pool

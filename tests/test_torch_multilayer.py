@@ -470,7 +470,8 @@ def test_the_new_modules_import_without_jax():
             "datasets.csv", "datasets.curves", "datasets.moving_window",
             "datasets.vectorizer", "datasets.lfw",
             "datasets.async_iterator", "eval.holdout", "serving.errors",
-            "models.lstm", "cli"]
+            "models.lstm", "cli", "serving.prefix_cache",
+            "serving.speculation", "serving.decode_loop"]
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             + "; ".join(f"import deeplearning4j_tpu_torch.{m}" for m in mods)
             + "; bad = [m for m in sys.modules if m.split('.')[0] in "

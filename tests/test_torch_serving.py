@@ -3,9 +3,11 @@ DecodeLoop, InferenceEngine) held against the JAX package on the CPU.
 
 Logits agree to 1e-4 on the same weights; greedy tokens from the port's
 `InferenceEngine.generate` and `DecodeLoop` are IDENTICAL to the JAX
-package's `generate_cached` and `DecodeLoop(prefix_cache=False,
-kernel="gather")`. The port's "kernel" lane runs the paged kernel's plain
-version here.
+package's `generate_cached` and `DecodeLoop(kernel="gather")`. The port's
+"kernel" lane runs the paged kernel's plain version here. The decode
+horizon and the SLO tiers are held to the JAX loop driven tick by tick
+(tokens, finish reasons, counters), with the page invariant checked
+after every tick; the tiers' wire helpers are held to JAX's.
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ import torch
 from deeplearning4j_tpu.models import transformer as jax_tf
 from deeplearning4j_tpu.serving import kv_cache as jax_kv
 from deeplearning4j_tpu.serving import paged_kv as jax_paged
+from deeplearning4j_tpu.serving import errors as jax_errors
 from deeplearning4j_tpu.serving.decode_loop import DecodeLoop as JaxLoop
 from deeplearning4j_tpu_torch.models import transformer as tf
-from deeplearning4j_tpu_torch.serving import decode_loop, paged_kv
+from deeplearning4j_tpu_torch.serving import decode_loop, errors, paged_kv
 from deeplearning4j_tpu_torch.serving.decode_loop import DecodeLoop
 from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
 from deeplearning4j_tpu_torch.serving.errors import (Deadline,
@@ -201,7 +204,7 @@ class TestGreedyTokens:
                        for p, m in zip(prompts, max_tokens)]
         ref_loop.run_until_idle()
         loop = DecodeLoop(tp, CFG, slots=2, page_size=PS, kernel=lane,
-                          device="cpu", start=False)
+                          prefix_cache=False, device="cpu", start=False)
         assert loop.decode_kernel == lane
         streams = [loop.submit(p, m) for p, m in zip(prompts, max_tokens)]
         loop.run_until_idle()
@@ -241,15 +244,16 @@ class TestGreedyTokens:
 
 class TestLoopContracts:
     def test_unported_options_raise_not_implemented(self, params):
+        """The fleet KV plane and the disaggregated roles (ROADMAP item
+        10e) are still refused, by the loop and through the engine."""
         _, tp = params
-        for kw in ({"prefix_cache": True}, {"speculation": 2},
-                   {"horizon": 4}, {"fleet_kv": "on"}, {"role": "decode"},
-                   {"batch_share": 0.5}):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        for kw in ({"fleet_kv": "on"}, {"fleet_kv": "summary"},
+                   {"role": "decode"}, {"role": "prefill"}):
+            with pytest.raises(NotImplementedError, match="ROADMAP.*10e"):
                 DecodeLoop(tp, CFG, device="cpu", start=False, **kw)
-        loop = DecodeLoop(tp, CFG, device="cpu", start=False)
-        with pytest.raises(NotImplementedError, match="tiers"):
-            loop.submit([1, 2], 2, tier="batch")
+            with pytest.raises(NotImplementedError, match="ROADMAP.*10e"):
+                InferenceEngine.for_transformer(tp, CFG, decode_slots=2,
+                                                device="cpu", **kw)
 
     def test_scheduler_error_reaches_the_caller(self, params, monkeypatch):
         _, tp = params
@@ -300,3 +304,397 @@ class TestLoopContracts:
                                ([CFG.vocab_size], 2, "token ids")):
             with pytest.raises(ValueError, match=msg):
                 loop.submit(prompt, n)
+
+
+# ----------------------------------------------------- tick-by-tick drive
+def _balance(loop):
+    """free + in use + cached-unreferenced == n_pages (either package)."""
+    assert (len(loop._free) + loop.pages_in_use + loop._cached_unref()
+            == loop.n_pages)
+
+
+def _drain(loop, max_ticks=500):
+    for _ in range(max_ticks):
+        with loop._cond:
+            if not loop._waiting and loop.occupied_slots == 0:
+                return
+        loop.tick()
+        _balance(loop)
+    raise AssertionError("loop did not drain")
+
+
+def _jax_loop(jp, **kw):
+    return JaxLoop(jp, JAX_CFG, page_size=PS, kernel="gather",
+                   fleet_kv="off", start=False, **kw)
+
+
+def _port_loop(tp, lane, **kw):
+    return DecodeLoop(tp, CFG, page_size=PS, kernel=lane, device="cpu",
+                      start=False, **kw)
+
+
+class TestHorizon:
+    JOBS = ((5, 11), (13, 6), (21, 9), (7, 1), (16, 14))
+
+    def _run(self, loop, jobs, seed):
+        rng = np.random.default_rng(seed)
+        streams = [loop.submit(rng.integers(0, CFG.vocab_size, t)
+                               .astype(np.int32), n) for t, n in jobs]
+        _drain(loop)
+        snap = loop.snapshot()
+        return ([s.result(0) for s in streams],
+                [s.finish_reason for s in streams],
+                snap["decode_kernel"]["kv_read_bytes"], snap["dispatches"])
+
+    @pytest.mark.parametrize("lane", ["gather", "kernel"])
+    def test_horizon4_tokens_equal_horizon1_and_jax(self, params, lane):
+        """horizon=4 changes only the dispatch granularity: the tokens of
+        horizon 1 and of JAX's horizon 4, JAX's KV read accounting and
+        dispatch count, and one step program."""
+        jp, tp = params
+        ref = self._run(_jax_loop(jp, slots=2, horizon=4), self.JOBS, 10)
+        h1 = self._run(_port_loop(tp, lane, slots=2), self.JOBS, 10)
+        loop = _port_loop(tp, lane, slots=2, horizon=4)
+        got = self._run(loop, self.JOBS, 10)
+        assert got == ref
+        assert got[:2] == h1[:2]
+        assert got[3] < h1[3]
+        assert loop.decode_step_programs() == 1
+        assert loop.snapshot()["horizon"] == 4
+
+    @pytest.mark.parametrize("horizon", [3, 4])
+    def test_generation_to_the_window_edge(self, params, horizon):
+        """prompt + max_tokens == max_len with a horizon that does not
+        divide the budget: the chain stops at the window edge exactly as
+        JAX's does (its overshoot writes go to the trash page)."""
+        jp, tp = params
+        jobs = ((34, CFG.max_len - 34), (3, 9))
+        ref = self._run(_jax_loop(jp, slots=2, horizon=horizon), jobs, 20)
+        got = self._run(_port_loop(tp, "kernel", slots=2, horizon=horizon),
+                        jobs, 20)
+        assert got == ref
+        assert got[1] == ["max_tokens", "max_tokens"]
+
+    def test_eos_overshoot_trimmed(self, params):
+        jp, tp = params
+        rng = np.random.default_rng(21)
+        prompt = rng.integers(0, CFG.vocab_size, 9).astype(np.int32)
+        plain = _port_loop(tp, "gather", slots=1)
+        full = plain.submit(prompt, 20)
+        _drain(plain)
+        eos = full.result(0)[6]
+        outs = []
+        for loop in (_jax_loop(jp, slots=1, horizon=4),
+                     _port_loop(tp, "gather", slots=1, horizon=4)):
+            st = loop.submit(prompt, 20, eos_id=eos)
+            _drain(loop)
+            outs.append((st.result(0), st.finish_reason,
+                         loop.snapshot()["tokens_streamed"]))
+        assert outs[0] == outs[1]
+        toks = full.result(0)
+        assert outs[1][0] == toks[:toks.index(eos) + 1]
+
+    def test_horizon_validation(self, params):
+        _, tp = params
+        with pytest.raises(ValueError, match="horizon"):
+            DecodeLoop(tp, CFG, horizon=0, device="cpu", start=False)
+
+
+class TestTierHelpers:
+    @pytest.mark.parametrize("headers,body", [
+        (None, None), ({}, {}), ({"X-Priority": "batch"},
+                                 {"priority": "interactive"}),
+        ({}, {"priority": "batch"}), ({"X-Priority": " Batch "}, None),
+        ({}, {"priority": "bacth"}), ({"X-Priority": "urgent"}, {})])
+    def test_parse_tier_matches_jax(self, headers, body):
+        try:
+            want = jax_errors.parse_tier(headers, body)
+        except ValueError as e:
+            with pytest.raises(ValueError, match="unknown priority tier"):
+                errors.parse_tier(headers, body)
+            assert "unknown" in str(e)
+            return
+        assert errors.parse_tier(headers, body) == want
+
+    def test_constants_and_backlog_retry_match_jax(self):
+        assert errors.TIERS == jax_errors.TIERS
+        assert (errors.TIER_INTERACTIVE, errors.TIER_BATCH,
+                errors.PRIORITY_HEADER) == (
+            jax_errors.TIER_INTERACTIVE, jax_errors.TIER_BATCH,
+            jax_errors.PRIORITY_HEADER)
+        for backlog in (-3, 0, 1, 2, 4, 8, 64, 512, 10_000):
+            for per_item in (0.0, 50.0, 250.0):
+                assert errors.backlog_retry_ms(backlog, per_item) == \
+                    jax_errors.backlog_retry_ms(backlog, per_item)
+        assert errors.backlog_retry_ms(4, 250.0) == 1000
+        assert decode_loop._TIER_ITEM_MS == {"interactive": 50.0,
+                                             "batch": 250.0}
+
+
+def _tier_record(loop, streams):
+    snap = loop.snapshot()
+    tiers = snap["tiers"]
+    return {"tokens": [list(s._generated) for s in streams],
+            "reasons": [s.finish_reason for s in streams],
+            "preemptions": tiers["preemptions"],
+            "occupied": tiers["occupied"], "waiting": tiers["waiting"],
+            "requests": tiers["requests"], "shed": tiers["shed"],
+            "hits": snap["prefix_cache"]["hits"],
+            "pages_cached": snap["prefix_cache"]["pages_cached"],
+            "admission_waits": snap["admission_waits"]}
+
+
+def _ticks(loop, n):
+    for _ in range(n):
+        loop.tick()
+        _balance(loop)
+
+
+def _tier_prompts(seed, n, t=17):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, CFG.vocab_size, t).astype(np.int32)
+            for _ in range(n)]
+
+
+def tier_fill_then_preempt(loop):
+    """Batch fills every idle slot; an interactive arrival preempts the
+    batch slot with the fewest tokens emitted, whose prompt pages seed
+    the cache; the interactive stream completes; a resubmitted victim
+    prompt hits the cache."""
+    prompts = _tier_prompts(0, 5)
+    batch = [loop.submit(prompts[0], 30, tier="batch")]
+    _ticks(loop, 2)                   # the first batch stream is ahead
+    batch += [loop.submit(p, 30, tier="batch") for p in prompts[1:4]]
+    _ticks(loop, 2)
+    recs = [_tier_record(loop, batch)]
+    assert recs[0]["occupied"]["batch"] == 4
+    inter = loop.submit(prompts[4], 6)
+    _ticks(loop, 1)
+    recs.append(_tier_record(loop, batch + [inter]))
+    assert recs[1]["preemptions"] == 1
+    reasons = [s.finish_reason for s in batch]
+    assert reasons.count("preempted") == 1
+    assert reasons.index("preempted") != 0  # the oldest emitted most
+    assert recs[1]["pages_cached"] >= 2
+    _drain(loop)
+    recs.append(_tier_record(loop, batch + [inter]))
+    assert inter.finish_reason == "max_tokens"
+    victim = batch[reasons.index("preempted")]
+    again = loop.submit(victim.prompt, 4, tier="batch")
+    _drain(loop)
+    recs.append(_tier_record(loop, batch + [inter, again]))
+    assert recs[-1]["hits"] >= 1
+    assert loop.pages_in_use == 0
+    return recs
+
+
+def tier_admission_order(loop):
+    """One slot: interactive arrivals go ahead of earlier batch ones,
+    FIFO within each tier."""
+    prompts = _tier_prompts(1, 5, t=5)
+    order = []
+    streams = [loop.submit(prompts[0], 3, tier="batch"),
+               loop.submit(prompts[1], 3, tier="batch"),
+               loop.submit(prompts[2], 3),
+               loop.submit(prompts[3], 3, tier="batch"),
+               loop.submit(prompts[4], 3)]
+    for _ in range(100):
+        with loop._cond:
+            if not loop._waiting and loop.occupied_slots == 0:
+                break
+        loop.tick()
+        _balance(loop)
+        for i, s in enumerate(streams):
+            if s.done and i not in order:
+                order.append(i)
+    assert order == [2, 4, 0, 1, 3]
+    return [_tier_record(loop, streams), order]
+
+
+def tier_share_cap(loop):
+    """4 slots, batch_share 0.5: while interactive work is live batch
+    holds at most 2 slots; once it is gone batch soaks every slot."""
+    prompts = _tier_prompts(2, 6, t=6)
+    inter = loop.submit(prompts[0], 12)
+    batch = [loop.submit(p, 20, tier="batch") for p in prompts[1:6]]
+    _ticks(loop, 1)
+    recs = [_tier_record(loop, [inter] + batch)]
+    assert recs[0]["occupied"] == {"interactive": 1, "batch": 2}
+    _ticks(loop, 14)                  # the interactive stream finishes
+    recs.append(_tier_record(loop, [inter] + batch))
+    assert inter.finish_reason == "max_tokens"
+    assert recs[1]["occupied"]["batch"] == 4
+    _drain(loop)
+    recs.append(_tier_record(loop, [inter] + batch))
+    return recs
+
+
+def tier_batch_shed(loop):
+    """max_waiting 4 -> batch_max_waiting 2: the batch lane sheds first,
+    with the tier and a Retry-After from the batch backlog, while
+    interactive admission stays open."""
+    prompts = _tier_prompts(3, 8, t=6)
+    held = [loop.submit(p, 10, tier="batch") for p in prompts[:2]]
+    _ticks(loop, 1)                   # both slots busy
+    queued = [loop.submit(p, 4, tier="batch") for p in prompts[2:4]]
+    with pytest.raises((OverloadedError,
+                        jax_errors.OverloadedError)) as shed:
+        loop.submit(prompts[4], 4, tier="batch")
+    err = shed.value
+    inter = [loop.submit(p, 3) for p in prompts[5:8]]
+    recs = [_tier_record(loop, held + queued + inter),
+            (err.tier, err.retry_after_ms, err.retry_after_s)]
+    assert err.tier == "batch"
+    assert err.retry_after_ms == jax_errors.backlog_retry_ms(3, 250.0)
+    _drain(loop)
+    recs.append(_tier_record(loop, held + queued + inter))
+    return recs
+
+
+TIER_SCENARIOS = {
+    "fill_then_preempt": (tier_fill_then_preempt, {"slots": 4}),
+    "admission_order": (tier_admission_order, {"slots": 1}),
+    "share_cap": (tier_share_cap, {"slots": 4}),
+    "batch_shed": (tier_batch_shed, {"slots": 2, "max_waiting": 4}),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_tier_runs(params):
+    jp, _ = params
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            fn, kw = TIER_SCENARIOS[name]
+            cache[name] = fn(_jax_loop(jp, **kw))
+        return cache[name]
+
+    return get
+
+
+class TestTiers:
+    @pytest.mark.parametrize("lane", ["gather", "kernel"])
+    @pytest.mark.parametrize("name", list(TIER_SCENARIOS))
+    def test_scenario_matches_jax(self, params, jax_tier_runs, name, lane):
+        _, tp = params
+        fn, kw = TIER_SCENARIOS[name]
+        assert fn(_port_loop(tp, lane, **kw)) == jax_tier_runs(name)
+
+    def test_tier_validation_and_defaults(self, params):
+        _, tp = params
+        loop = DecodeLoop(tp, CFG, slots=8, device="cpu", start=False)
+        snap = loop.snapshot()["tiers"]
+        assert snap["batch_share"] == 0.5 and snap["batch_slot_cap"] == 4
+        assert snap["batch_max_waiting"] is None
+        with pytest.raises(ValueError, match="unknown tier"):
+            loop.submit([1, 2], 2, tier="bulk")
+        for bad in (0.0, 1.5):
+            with pytest.raises(ValueError, match="batch_share"):
+                DecodeLoop(tp, CFG, batch_share=bad, device="cpu",
+                           start=False)
+        with pytest.raises(ValueError, match="batch_max_waiting"):
+            DecodeLoop(tp, CFG, batch_max_waiting=-1, device="cpu",
+                       start=False)
+
+
+class TestEngineOptions:
+    def test_for_transformer_forwards_every_loop_option(self, params):
+        _, tp = params
+        eng = InferenceEngine.for_transformer(
+            tp, CFG, decode_slots=3, page_size=PS, kv_pages=40,
+            max_waiting=6, prefix_cache=False, decode_kernel="kernel",
+            horizon=2, batch_share=0.34, batch_max_waiting=1, device="cpu",
+            start=False)
+        loop = eng.decode_loop
+        assert (loop.slots, loop.page_size, loop.n_pages, loop.horizon) == (
+            3, PS, 40, 2)
+        assert loop.max_waiting == 6 and loop.batch_max_waiting == 1
+        assert not loop.prefix_cache_enabled
+        assert loop.decode_kernel == "kernel"
+        assert loop._batch_slot_cap == 1
+        snap = eng.snapshot()["decode"]
+        for key in ("tiers", "prefix_cache", "speculation", "fleet_kv",
+                    "decode_step_programs"):
+            assert key in snap
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            InferenceEngine.for_transformer(tp, CFG, decode_slots=2,
+                                            horizon=2, speculation=2,
+                                            device="cpu")
+
+    def test_engine_defaults_match_jax(self):
+        import inspect
+
+        from deeplearning4j_tpu.serving.engine import \
+            InferenceEngine as JaxEngine
+        for name in ("for_transformer", "start_decode_loop"):
+            ours = inspect.signature(getattr(InferenceEngine, name))
+            ref = inspect.signature(getattr(JaxEngine, name))
+            for pname, p in ours.parameters.items():
+                if pname in ref.parameters and pname != "fleet_kv":
+                    assert p.default == ref.parameters[pname].default, pname
+        assert inspect.signature(InferenceEngine.start_decode_loop) \
+            .parameters["fleet_kv"].default == "off"
+
+    def test_generate_stream_speculation_opt_out(self, params):
+        jp, tp = params
+        prompts = _prompts(8, (9, 12))
+        eng = InferenceEngine.for_transformer(
+            tp, CFG, decode_slots=2, page_size=PS, speculation=3,
+            device="cpu")
+        try:
+            a = eng.generate_stream(prompts[0], 10).result(120)
+            b = eng.generate_stream(prompts[0], 10,
+                                    speculation=False).result(120)
+            spec = eng.snapshot()["decode"]["speculation"]
+        finally:
+            eng.close()
+        assert a == b
+        assert spec["enabled"] and spec["k"] == 3
+        ref = np.asarray(jax_kv.generate_cached(
+            jp, jnp.asarray(prompts[0][None]), JAX_CFG, 10))[0]
+        assert a == ref[len(prompts[0]):].tolist()
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the captured step runs only "
+                    "there)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon,spec", [(1, 0), (4, 0), (1, 3)])
+def test_graph_step_matches_eager_step_on_card(card, horizon, spec):
+    """The captured step (and verify) graphs give the eager step's tokens
+    on the card: one graph plain, two with speculation. The model has the
+    kernels' head dim (64) and the port's own initialiser (the JAX
+    package is not on the card)."""
+    cfg = tf.TransformerConfig(vocab_size=53, d_model=128, n_heads=2,
+                               n_layers=2, d_ff=64, max_len=64)
+    tp = tf.init_transformer_params(0, cfg, device=card)
+    prompts = _prompts(9, (5, 13, 8, 20))
+    outs = []
+    for capture in (True, False):
+        loop = DecodeLoop(tp, cfg, slots=2, page_size=PS, horizon=horizon,
+                          speculation=spec, device=card, start=False)
+        loop._capture = capture
+        streams = [loop.submit(p, 9) for p in prompts]
+        _drain(loop)
+        outs.append([s.result(0) for s in streams])
+        if capture:
+            # speculation captures the verify and step graphs up front
+            assert sorted(loop._graphs) == (["step", "verify"] if spec
+                                            else ["step"])
+            assert loop.decode_step_programs() == (2 if spec else 1)
+            # each graph records K4 once a layer a column; its replays
+            # are counted by the loop, never by the wrapper
+            per = {"step": horizon * cfg.n_layers,
+                   "verify": (spec + 1) * cfg.n_layers}
+            for name, g in loop._graphs.items():
+                assert g.launches == {"paged_decode": per[name],
+                                      "flash_fwd": 0}
+            assert loop.graph_launches()["paged_decode"] == sum(
+                g.replays * per[n] for n, g in loop._graphs.items()) > 0
+    assert outs[0] == outs[1]
