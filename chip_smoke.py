@@ -88,6 +88,44 @@ prints no result):
                   against its plain version the same way;
                   paged_verify_step column by column against
                   paged_decode_step's logits within 1e-3.
+5d. http_serve   — serve_network in-process on the card: /predict runs
+                  BASELINE config 1's MLP (784-2048-1024-10, bf16
+                  products) through ReplicaSet and MicroBatcher, 2,048
+                  rows from 8 concurrent clients, against net.output
+                  within the bf16 tolerance (p50/p99 latency, the
+                  batcher's mean batch); /generate runs the 110M bf16 LM
+                  (8 slots, page_size 16, 512 pages): phase 5's 16
+                  requests, half streamed, once in request order (the
+                  scheduler's first pass held by a chaos delay while the
+                  staggered arrivals queue) with tokens equal to an
+                  in-process DecodeLoop's, then all at once outside the
+                  prefix cache (tokens/s, TTFT p50, wall and replay ms a
+                  dispatch beside the in-process loop's; identical or
+                  near-ties), again with no row streamed, with a 0.1 ms
+                  thread switch interval and with the clients in a
+                  process of their own; /readyz
+                  200 after the warmup, recompiled_after_warmup, the
+                  dl4j_decode_* series and dl4j_device_memory_bytes on
+                  /metrics, every page back, one decode graph; then
+                  `python -m deeplearning4j_tpu_torch.cli serve --smoke`
+                  as a subprocess, its announce line with the JAX CLI's
+                  keys. K1 and K4 counted as the "http" path.
+5e. disagg       — three servers on the card (role prefill, role decode,
+                  unified; fleet_kv "on"): 16 prompts on a 256-token
+                  head with tails of 16-256 tokens, each POST /prefill
+                  to the prefill server, then /generate (streamed) on
+                  the decode server with kv_donor naming it. The shipped
+                  pages bit-equal to the donor's, read from both pools;
+                  the decode server prefills only the tokens past the
+                  shipped full pages; its tokens equal the unified
+                  server's warm run (its own /prefill then /generate)
+                  and, by the near-tie rule, its cold run; the prefill
+                  server captured no decode graph and ran no dispatch; a
+                  chaos fleet.kv_ship error falls back to a plain prefill
+                  with the unified cold run's tokens; every pool
+                  balanced. Ship bytes, ms a shipped page, handoff TTFT
+                  against unified cold TTFT. K1 on the prefill role and
+                  K4 on the decode role counted as the "disagg" path.
 6. train_parity — full width cut to 2 layers, float32, 2 x 301 tokens:
                   lm_loss and every gradient leaf on the card (K1 with its
                   lse, K2, K3) against the same weights on the CPU (plain
@@ -230,7 +268,8 @@ whole prefill, decode step and training step, each profiled; K1, K2 and
 K3 also at the attention stack's shape (B*H 1024, T 28, hd 128, not
 causal), and K1 at the model drafter's shape. The kernels' launches
 are counted per path, a captured graph's replays included (serve,
-serve_features, spec, draft, train, multilayer, solver, guardian, cli).
+serve_features, spec, draft, http, disagg, train, multilayer, solver,
+guardian, cli).
 The last lines are the card as nvidia-smi gives it, the kernels' JSON
 line (with each kernel's design), and
 {"ok": true, "device": {...}}.
@@ -1339,6 +1378,546 @@ def phase_serve_features_parity(device, seed):
             "draft_k1_launches": windows[0], "drafter_vs_plain": drafter,
             "verify_vs_decode_max_abs_err": verify_err,
             "verify_widths": widths.tolist(), "ok": ok}
+
+
+# ------------------------------------------------ the HTTP front end
+#: the http_serve phase: /predict rows from concurrent clients, rows a
+#: request, the batcher's coalescing cap; the streamed share of phase 5's
+#: /generate requests; the arrival stagger of the ordered round and how
+#: long its first scheduler pass waits for every request to queue
+HTTP_ROWS, HTTP_CLIENTS, HTTP_ROWS_PER_REQ, HTTP_BATCH = 2048, 8, 32, 256
+HTTP_STAGGER_S, HTTP_HOLD_S = 0.03, 1.0
+#: the keys of the JAX CLI's `serve` announce line (its cli.py:502-545)
+ANNOUNCE_KEYS = {
+    "serving", "role", "model_id", "replicas", "max_batch_size",
+    "max_delay_ms", "slots", "page_size", "prefix_cache", "decode_kernel",
+    "decode", "compile_cache", "warmup_plan", "metrics"}
+ANNOUNCE_DECODE_KEYS = {"kernel", "prefix_cache", "fleet_kv", "slots",
+                        "batch_share", "page_size", "kv_pages", "horizon",
+                        "speculation"}
+HTTP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_http"
+#: /generate clients in a process of their own (stdlib only): argv is the
+#: server's URL, the prompts, max_tokens and the streamed rows (JSON);
+#: prints {"wall_s", "rows": [[tokens, ms to the first token], ...]}
+CLIENT_PROCESS = r"""
+import json, sys, threading, time, urllib.request
+url, prompts, n = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3])
+streamed = set(json.loads(sys.argv[4]))
+rows = [None] * len(prompts)
+def run(i):
+    body = {"prompt": [prompts[i]], "max_tokens": n,
+            "stream": i in streamed, "prefix_cache": False}
+    req = urllib.request.Request(url + "/generate",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0, first, toks = time.perf_counter(), None, None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if i not in streamed:
+            toks = json.loads(r.read())["tokens"][0][len(prompts[i]):]
+        for line in (r if i in streamed else ()):
+            ev = json.loads(line)
+            if "token" in ev and first is None:
+                first = (time.perf_counter() - t0) * 1e3
+            if ev.get("done"):
+                toks = ev["tokens"][0][len(prompts[i]):]
+    rows[i] = [toks, first]
+t0 = time.perf_counter()
+threads = [threading.Thread(target=run, args=(i,))
+           for i in range(len(prompts))]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"wall_s": time.perf_counter() - t0, "rows": rows}))
+"""
+
+
+def http_post(url, payload, timeout=600):
+    from urllib import request
+
+    req = request.Request(url, data=json.dumps(payload).encode(),
+                          headers={"Content-Type": "application/json"})
+    with request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def http_get(url, timeout=60):
+    from urllib import request
+
+    with request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def http_generate(url, prompt, max_tokens, stream, **body):
+    """One /generate row over HTTP: (generated tokens, ms to the first
+    streamed token or None, ms to the reply's end)."""
+    from urllib import request
+
+    payload = {"prompt": [prompt], "max_tokens": max_tokens,
+               "stream": stream, **body}
+    req = request.Request(url + "/generate",
+                          data=json.dumps(payload).encode(),
+                          headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first = None
+    with request.urlopen(req, timeout=600) as r:
+        if not stream:
+            out = json.loads(r.read())
+            return (out["tokens"][0][len(prompt):], None,
+                    (time.perf_counter() - t0) * 1e3)
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            event = json.loads(line)
+            if "token" in event and first is None:
+                first = (time.perf_counter() - t0) * 1e3
+            if event.get("done"):
+                toks = event["tokens"][0][len(prompt):]
+            if "error" in event:
+                raise RuntimeError(f"stream failed: {event}")
+    return toks, first, (time.perf_counter() - t0) * 1e3
+
+
+def concurrently(fns):
+    """Run each callable on its own thread; their results in order (an
+    exception in any is raised here)."""
+    import threading
+
+    results = [None] * len(fns)
+    errors = []
+
+    def run(i, fn):
+        try:
+            results[i] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, fn), daemon=True)
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors:
+        raise errors[0]
+    return results
+
+
+def in_process_reference(params, prompts, device):
+    """Phase 5's requests through an in-process DecodeLoop of the http
+    server's configuration, every prompt submitted as one group (so all
+    queue before the first admission): the tokens, tokens/s and each
+    stream's time to first token (ms from the submit)."""
+    from deeplearning4j_tpu_torch.serving.decode_loop import DecodeLoop
+
+    loop = DecodeLoop(params, FULL, slots=SLOTS, page_size=PAGE_SIZE,
+                      n_pages=SF_PAGES, device=device)
+    try:
+        # the step graph captured and the prefill shapes run once
+        # (outside the prefix cache), as the timed HTTP round finds the
+        # server's
+        for s in loop.submit_many(prompts, MAX_TOKENS, prefix_cache=False):
+            s.result(600)
+        n0 = loop.snapshot()["dispatches"]
+        t0 = time.perf_counter()
+        streams = loop.submit_many(prompts, MAX_TOKENS)
+        firsts = [None] * len(streams)
+        while not all(s.done for s in streams):
+            now = (time.perf_counter() - t0) * 1e3
+            for i, s in enumerate(streams):
+                if firsts[i] is None and s._generated:
+                    firsts[i] = now
+            time.sleep(0.0005)
+        wall = time.perf_counter() - t0
+        outs = [s.result(0) for s in streams]
+        n = loop.snapshot()["dispatches"] - n0
+        steps = sorted(list(loop.step_seconds)[-n:])
+    finally:
+        loop.close()
+    generated = sum(len(o) for o in outs)
+    return outs, {"wall_s": wall, "tokens_per_s": generated / wall,
+                  "ttft_ms": firsts, "ttft_ms_p50": pct(firsts, 0.5),
+                  "dispatches": n, "wall_ms_a_dispatch": wall * 1e3 / n,
+                  "dispatch_ms_p50": pct(steps, 0.5) * 1e3}
+
+
+def phase_http_serve(device, seed, params, timer):
+    """`serve_network` in-process at full width: /predict with BASELINE
+    config 1's MLP (bf16 products) through ReplicaSet and MicroBatcher,
+    /generate with the 110M bf16 LM (8 slots, page_size 16, 512 pages),
+    driven by concurrent HTTP clients; then `cli serve --smoke` as a
+    subprocess."""
+    from deeplearning4j_tpu_torch.serving import serve_network
+    from deeplearning4j_tpu_torch.testing import chaos
+
+    net = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    gen = InferenceEngine.for_transformer(params, FULL, device=device)
+    handle = serve_network(net, generate_engine=gen, slots=SLOTS,
+                           page_size=PAGE_SIZE, kv_pages=SF_PAGES,
+                           max_batch_size=HTTP_BATCH, max_delay_ms=2.0,
+                           warmup_shape=(784,))
+    out, ok = {"card": nvidia_smi()}, True
+    try:
+        loop = gen.decode_loop
+        url = handle.url
+        status, body = http_get(url + "/readyz")
+        ready = json.loads(body)
+        out["readyz"] = {"status": status, "ready": ready["ready"],
+                         "warmup_seconds": ready.get("warmup_seconds")}
+        ok = ok and status == 200 and ready["ready"]
+
+        # /predict: 2,048 rows from 8 clients against net.output
+        rng = np.random.default_rng(seed + 40)
+        x = np.round(rng.uniform(size=(HTTP_ROWS, 784)), 3).astype(
+            np.float32)
+        with torch.no_grad():
+            ref = net.output(torch.from_numpy(x).to(device)).float().cpu()
+        per_client = HTTP_ROWS // HTTP_CLIENTS
+        lat, errs = [], []
+
+        def client(c):
+            got = []
+            for r0 in range(c * per_client, (c + 1) * per_client,
+                            HTTP_ROWS_PER_REQ):
+                rows = x[r0:r0 + HTTP_ROWS_PER_REQ]
+                t0 = time.perf_counter()
+                res = http_post(url + "/predict", {"inputs": rows.tolist()})
+                lat.append((time.perf_counter() - t0) * 1e3)
+                got.append((r0, np.asarray(res["outputs"], np.float32)))
+            return got
+
+        t0 = time.perf_counter()
+        for got in concurrently([lambda c=c: client(c)
+                                 for c in range(HTTP_CLIENTS)]):
+            for r0, o in got:
+                errs.append(max_err(torch.from_numpy(o),
+                                    ref[r0:r0 + len(o)]))
+        predict_wall = time.perf_counter() - t0
+        batcher = handle.batcher.snapshot()
+        out["predict"] = {
+            "rows": HTTP_ROWS, "clients": HTTP_CLIENTS,
+            "rows_per_request": HTTP_ROWS_PER_REQ, "requests": len(lat),
+            "latency_ms_p50": pct(lat, 0.5), "latency_ms_p99": pct(lat, 0.99),
+            "rows_per_s": HTTP_ROWS / predict_wall,
+            "max_abs_err_vs_output": max(errs),
+            "batcher_mean_rows_per_batch": batcher["mean_rows_per_batch"],
+            "batcher_batches": batcher["batches"]}
+        ok = ok and max(errs) <= TOL[torch.bfloat16]
+
+        # /generate: the in-process loop first (its own pool), then the
+        # same prompts over HTTP, half of them streamed
+        prompts = serve_requests(seed)
+        ref_toks, ref_rec = in_process_reference(params, prompts, device)
+        streamed = list(range(0, N_REQUESTS, 2))
+        graphs_before = loop.graph_launches()
+        paged.launches = flash.launches = 0
+
+        def request(i, delay=0.0, **body):
+            time.sleep(delay)
+            return http_generate(url, prompts[i], MAX_TOKENS,
+                                 i in streamed, **body)
+
+        # ordered round: arrivals staggered in request order while the
+        # scheduler's first pass holds, so admission (and so every
+        # prefill group) is the in-process loop's: tokens equal
+        chaos.configure([chaos.Rule("decode.step", "delay",
+                                    delay_s=HTTP_HOLD_S, at=[0])])
+        try:
+            ordered = concurrently([
+                lambda i=i: request(i, delay=i * HTTP_STAGGER_S)
+                for i in range(N_REQUESTS)])
+        finally:
+            chaos.deactivate()
+        ordered_toks = [o[0] for o in ordered]
+        def timed_round(run):
+            """One timed round (`run()` -> (wall s, [(tokens, ttft ms)])):
+            tokens/s, TTFT p50, and the loop's dispatches and dispatch
+            ms p50 (replay through the token copy) in it."""
+            n0 = loop.snapshot()["dispatches"]
+            wall, res = run()
+            n = loop.snapshot()["dispatches"] - n0
+            steps = sorted(list(loop.step_seconds)[-n:]) if n else []
+            v_ttft = [o[1] for o in res if o[1] is not None]
+            return [o[0] for o in res], {
+                "wall_s": wall,
+                "tokens_per_s": sum(len(o[0]) for o in res) / wall,
+                "ttft_ms": v_ttft,
+                "ttft_ms_p50": pct(v_ttft, 0.5) if v_ttft else None,
+                "dispatches": n, "wall_ms_a_dispatch": wall * 1e3 / max(n, 1),
+                "dispatch_ms_p50": pct(steps, 0.5) * 1e3 if steps else None,
+                "equal_in_process": sum(o[0] == r for o, r in
+                                        zip(res, ref_toks))}
+
+        def in_threads(stream=True, switch=None):
+            def run():
+                old = sys.getswitchinterval()
+                if switch:
+                    sys.setswitchinterval(switch)
+                try:
+                    t0 = time.perf_counter()
+                    res = concurrently([
+                        lambda i=i: http_generate(
+                            url, prompts[i], MAX_TOKENS,
+                            stream and i in streamed, prefix_cache=False)
+                        for i in range(N_REQUESTS)])
+                    return time.perf_counter() - t0, res
+                finally:
+                    sys.setswitchinterval(old)
+            return run
+
+        def in_a_process():
+            sub = subprocess.run(
+                [sys.executable, "-c", CLIENT_PROCESS, url,
+                 json.dumps(prompts), str(MAX_TOKENS), json.dumps(streamed)],
+                capture_output=True, text=True, timeout=600,
+                env={k: v for k, v in os.environ.items()
+                     if k != "PYTHONPATH"})
+            rec = json.loads(sub.stdout)
+            return rec["wall_s"], [tuple(r) for r in rec["rows"]]
+
+        # timed round: all clients at once, outside the prefix cache
+        timed_toks, timed_rec = timed_round(in_threads())
+        torch.cuda.synchronize()
+        launches = loop_launches(loop, graphs_before)
+        # where HTTP's time goes: the same round with no row streamed,
+        # with the interpreter's thread switch interval at 0.1 ms (5 ms
+        # by default), and with the clients in a process of their own
+        # (so only the server's threads share this interpreter's GIL)
+        variants = {}
+        for name, run in (("unstreamed", in_threads(stream=False)),
+                          ("switch_100us", in_threads(switch=1e-4)),
+                          ("clients_in_a_process", in_a_process)):
+            variants[name] = timed_round(run)[1]
+        diffs = first_differences(params, FULL, prompts, ref_toks,
+                                  timed_toks)
+        out["generate"] = {
+            "requests": N_REQUESTS, "streamed": len(streamed),
+            "max_tokens": MAX_TOKENS,
+            "ordered_equal_in_process": sum(
+                a == b for a, b in zip(ordered_toks, ref_toks)),
+            "timed_equal_in_process": sum(
+                a == b for a, b in zip(timed_toks, ref_toks)),
+            "timed_first_differences": diffs,
+            "http": timed_rec,
+            "http_variants": variants,
+            "in_process": {**ref_rec, "ttft_ms_streamed_p50": pct(
+                [ref_rec["ttft_ms"][i] for i in streamed], 0.5)},
+            "launches": launches}
+        ok = (ok and ordered_toks == ref_toks
+              and near_ties(diffs, TOL[FULL.dtype])
+              and launches["flash_fwd"] > 0 and launches["paged_decode"] > 0)
+
+        status, metrics = http_get(url + "/metrics")
+        metrics = metrics.decode()
+        stats = json.loads(http_get(url + "/stats")[1])
+        snap = loop.snapshot()
+        out["metrics"] = {
+            "series": len(metrics.splitlines()),
+            "decode_series": sorted({
+                ln.split("{")[0].split(" ")[0] for ln in metrics.splitlines()
+                if ln.startswith("dl4j_decode_")}),
+            "device_memory_bytes": [ln for ln in metrics.splitlines()
+                                    if ln.startswith(
+                                        'dl4j_device_memory_bytes{device='
+                                        '"cuda:0"')]}
+        out["warmup"] = stats["warmup"]
+        out["decode"] = {k: snap[k] for k in (
+            "pages_in_use", "prefill_tokens", "dispatches",
+            "decode_step_programs", "prefix_cache", "fleet_kv")}
+        ok = (ok and status == 200
+              and len(out["metrics"]["decode_series"]) >= 5
+              and len(out["metrics"]["device_memory_bytes"]) == 3
+              and stats["warmup"]["recompiled_after_warmup"] is not None
+              and snap["pages_in_use"] == 0 and page_balance(loop)
+              and snap["decode_step_programs"] == 1)
+    finally:
+        handle.close()
+
+    # the command line on the card, as a subprocess
+    shutil.rmtree(HTTP_DIR, ignore_errors=True)
+    HTTP_DIR.mkdir(parents=True)
+    (HTTP_DIR / "conf.json").write_text(mlp_conf("bfloat16").to_json())
+    spec = json.dumps({"vocab_size": FULL.vocab_size, "d_model": 1024,
+                       "n_heads": 8, "n_layers": 2, "d_ff": 4096,
+                       "max_len": FULL.max_len, "dtype": "bfloat16"})
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "serve",
+         "-m", str(HTTP_DIR / "conf.json"), "--transformer", spec,
+         "--page-size", str(PAGE_SIZE), "--smoke"],
+        capture_output=True, text=True, timeout=600, env=env,
+        cwd=str(Path(__file__).resolve().parent))
+    shutil.rmtree(HTTP_DIR, ignore_errors=True)
+    announce = last_json(sub.stdout) if sub.returncode == 0 else {}
+    out["cli_serve_smoke"] = {
+        "rc": sub.returncode, "seconds": time.perf_counter() - t0,
+        "announce": announce, "stderr_tail": sub.stderr[-400:]}
+    ok = (ok and sub.returncode == 0 and set(announce) == ANNOUNCE_KEYS
+          and set(announce["decode"]) == ANNOUNCE_DECODE_KEYS
+          and announce["decode"]["kernel"]["selected"] == "kernel")
+    out["ok"] = ok
+    return out
+
+
+# ------------------------------------------- disaggregated prefill/decode
+def phase_disagg(device, seed, params, timer):
+    """Three servers on the one card, each fleet_kv "on": role prefill,
+    role decode and unified. 16 prompts on a 256-token head (serve_features'
+    chat traffic): /prefill on the prefill server, then /generate on the
+    decode server naming it as kv_donor. The same prompts on the unified
+    server cold (outside the prefix cache) and warm (its own /prefill,
+    then /generate)."""
+    from deeplearning4j_tpu_torch.serving import ReplicaSet, serve_network
+    from deeplearning4j_tpu_torch.testing import chaos
+
+    rng = np.random.default_rng(seed + 50)
+    head = rng.integers(0, FULL.vocab_size, SF_HEAD).tolist()
+    tails = rng.integers(SF_TAIL[0], SF_TAIL[1] + 1, N_REQUESTS).tolist()
+    prompts = [head + rng.integers(0, FULL.vocab_size, t).tolist()
+               for t in tails]
+    lone = rng.integers(0, FULL.vocab_size, SF_HEAD + 40).tolist()
+    predict = ReplicaSet([InferenceEngine.for_network(
+        MultiLayerNetwork(mlp_conf("bfloat16"), device=device))])
+    handles, loops = {}, {}
+    for role in ("prefill", "decode", "unified"):
+        gen = InferenceEngine.for_transformer(params, FULL, device=device)
+        handles[role] = serve_network(
+            replicas=predict, generate_engine=gen, slots=SLOTS,
+            page_size=PAGE_SIZE, kv_pages=SF_PAGES, fleet_kv="on",
+            kv_ship_timeout=60.0, role=role)
+        loops[role] = gen.decode_loop
+    urls = {r: h.url for r, h in handles.items()}
+    ships = []
+    dec = loops["decode"]
+    ship = dec.kv_ship
+
+    def timed_ship(*a, **kw):
+        t0 = time.perf_counter()
+        n = ship(*a, **kw)
+        ships.append(((time.perf_counter() - t0) * 1e3, n))
+        return n
+
+    dec.kv_ship = timed_ship  # the handler looks it up on the loop
+    out, ok = {"card": nvidia_smi()}, True
+    try:
+        # capture the decode and unified servers' step graphs first,
+        # outside the prefix cache, so no TTFT below holds a capture
+        for role in ("decode", "unified"):
+            http_generate(urls[role], lone[:24], 4, False,
+                          prefix_cache=False)
+        # handoffs: /prefill then the decode server's stream, per prompt
+        before = {r: loops[r].snapshot() for r in loops}
+        graphs_before = {r: loops[r].graph_launches() for r in loops}
+        paged.launches = flash.launches = 0
+        handoff, handoff_ttft = [], []
+        for p in prompts:
+            # the handoff's time to first token: /prefill, then the
+            # decode server's first streamed token
+            t0 = time.perf_counter()
+            http_post(urls["prefill"] + "/prefill", {"prompt": [p]})
+            lead = (time.perf_counter() - t0) * 1e3
+            toks, first, _ = http_generate(urls["decode"], p, MAX_TOKENS,
+                                           True, kv_donor=urls["prefill"])
+            handoff.append(toks)
+            handoff_ttft.append(lead + first)
+        torch.cuda.synchronize()
+        k1_prefill_role = flash.launches
+        k4_decode_role = (paged.launches
+                          + dec.graph_launches()["paged_decode"]
+                          - graphs_before["decode"]["paged_decode"])
+        pre_snap, dec_snap = (loops["prefill"].snapshot(),
+                              dec.snapshot())
+        # the shipped pages are the donor's, read back from both pools
+        pages_equal = True
+        for p in prompts:
+            dpages = loops["prefill"]._prefix.match(p)
+            rpages = dec._prefix.match(p)
+            pages_equal = pages_equal and len(dpages) == len(rpages) == \
+                len(p) // PAGE_SIZE
+            for dl, rl in zip(loops["prefill"]._pool.layers,
+                              dec._pool.layers):
+                for name in ("k", "v"):
+                    pages_equal = pages_equal and torch.equal(
+                        dl[name][dpages], rl[name][rpages])
+        tail_tokens = sum(len(p) % PAGE_SIZE for p in prompts)
+        # the unified server: cold, then warm through its own /prefill
+        cold, cold_ttft, warm = [], [], []
+        for p in prompts:
+            toks, first, _ = http_generate(urls["unified"], p, MAX_TOKENS,
+                                           True, prefix_cache=False)
+            cold.append(toks)
+            cold_ttft.append(first)
+        for p in prompts:
+            http_post(urls["unified"] + "/prefill", {"prompt": [p]})
+            warm.append(http_generate(urls["unified"], p, MAX_TOKENS,
+                                      False)[0])
+        cold_diffs = first_differences(params, FULL, prompts, cold, handoff)
+        # a chaos fleet.kv_ship error: the decode server falls back to a
+        # plain (cold) prefill of a prompt nobody cached — the unified
+        # server's cold tokens
+        fails = dec.snapshot()["fleet_kv"]["ship_failures"]
+        http_post(urls["prefill"] + "/prefill", {"prompt": [lone]})
+        chaos.configure([chaos.Rule("fleet.kv_ship", "error", at=[0])])
+        try:
+            fallback = http_generate(urls["decode"], lone, MAX_TOKENS, False,
+                                     kv_donor=urls["prefill"])[0]
+        finally:
+            chaos.deactivate()
+        lone_cold = http_generate(urls["unified"], lone, MAX_TOKENS, False,
+                                  prefix_cache=False)[0]
+        end = {r: loops[r].snapshot() for r in loops}
+        ship_bytes = dec_snap["fleet_kv"]["ship_bytes"] - \
+            before["decode"]["fleet_kv"]["ship_bytes"]
+        shipped = sum(n for _, n in ships[:N_REQUESTS])
+        out.update({
+            "requests": N_REQUESTS, "head_tokens": SF_HEAD,
+            "tail_tokens": tails, "max_tokens": MAX_TOKENS,
+            "handoff_equal_unified_warm": sum(
+                a == b for a, b in zip(handoff, warm)),
+            "handoff_equal_unified_cold": sum(
+                a == b for a, b in zip(handoff, cold)),
+            "first_differences_vs_cold": cold_diffs,
+            "pages_bit_equal": pages_equal,
+            "page_ships": dec_snap["fleet_kv"]["page_ships"],
+            "ship_bytes": ship_bytes,
+            "ship_ms_per_page": (sum(ms for ms, _ in ships[:N_REQUESTS])
+                                 / max(shipped, 1)),
+            "ship_calls_ms": [ms for ms, _ in ships[:N_REQUESTS]],
+            "decode_prefill_tokens": dec_snap["prefill_tokens"]
+            - before["decode"]["prefill_tokens"],
+            "tail_only_tokens": tail_tokens,
+            "prefill_role": {k: pre_snap[k] for k in (
+                "decode_step_programs", "dispatches", "prefill_tokens",
+                "fleet_kv")},
+            "ttft_ms_p50": {"handoff": pct(handoff_ttft, 0.5),
+                            "unified_cold": pct(cold_ttft, 0.5)},
+            "ttft_ms": {"handoff": handoff_ttft, "unified_cold": cold_ttft},
+            "launches": {"flash_fwd": k1_prefill_role,
+                         "paged_decode": k4_decode_role},
+            "chaos_fallback": {
+                "equal_cold": fallback == lone_cold,
+                "ship_failures": end["decode"]["fleet_kv"]["ship_failures"]
+                - fails},
+            "pools_balanced": {r: page_balance(loops[r]) for r in loops},
+            "pages_in_use": {r: end[r]["pages_in_use"] for r in end}})
+        ok = (handoff == warm and near_ties(cold_diffs, TOL[FULL.dtype],
+                                            FULL.dtype)
+              and pages_equal
+              and out["decode_prefill_tokens"] == tail_tokens
+              and pre_snap["decode_step_programs"] == 0
+              and pre_snap["dispatches"] == 0
+              and k1_prefill_role > 0 and k4_decode_role > 0
+              and fallback == lone_cold
+              and out["chaos_fallback"]["ship_failures"] == 1
+              and all(out["pools_balanced"].values())
+              and all(v == 0 for v in out["pages_in_use"].values()))
+    finally:
+        for h in handles.values():
+            h.close()
+    out["ok"] = ok
+    return out
 
 
 def flash_counts() -> dict:
@@ -3463,7 +4042,13 @@ def main(argv=None) -> int:
                                                    params, timer)),
                      ("serve_features_parity",
                       lambda: phase_serve_features_parity(device,
-                                                          args.seed))):
+                                                          args.seed)),
+                     ("http_serve",
+                      lambda: phase_http_serve(device, args.seed, params,
+                                               timer)),
+                     ("disagg",
+                      lambda: phase_disagg(device, args.seed, params,
+                                           timer))):
         t0 = time.perf_counter()
         res = fn()
         res["seconds"] = time.perf_counter() - t0
@@ -3536,10 +4121,17 @@ def main(argv=None) -> int:
         record["serve_features"]["speculation"]["model"]["draft_k1_check"]
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k1["draft_shape"]["max_abs_err"])
+    http = {name: record[name]["launches"] if name == "disagg"
+            else record[name]["generate"]["launches"]
+            for name in ("http_serve", "disagg")}
     k1["launches_by_path"] = {"serve": k1["launches"],
                               **sf["flash_fwd"],
+                              "http": http["http_serve"]["flash_fwd"],
+                              "disagg": http["disagg"]["flash_fwd"],
                               "train": train["launches"]["flash_fwd"]}
-    k4["launches_by_path"] = {"serve": k4["launches"], **sf["paged_decode"]}
+    k4["launches_by_path"] = {"serve": k4["launches"], **sf["paged_decode"],
+                              "http": http["http_serve"]["paged_decode"],
+                              "disagg": http["disagg"]["paged_decode"]}
     k4["launches"] = sum(k4["launches_by_path"].values())
     for row in bwd_rows:
         row["launches_by_path"] = {"train": row["launches"]}

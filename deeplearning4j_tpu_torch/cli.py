@@ -15,22 +15,34 @@ Usage (CLI = `python -m deeplearning4j_tpu_torch.cli`):
     CLI predict -i data.csv -m model.ckpt -o preds.csv
     CLI eval    -m ckpts/ --data heldout.csv --json
     CLI checkpoint inspect ckpts/
+    CLI serve   -m model.ckpt --transformer '{"vocab_size": 64}' --port 0
+    CLI batch   --url http://127.0.0.1:PORT -i prompts.jsonl -o out.jsonl
 
 `-m` accepts a conf .json (fresh net), a single-file .ckpt, or a sharded
 checkpoint DIRECTORY for train/test/predict/eval. Checkpoints cross
 between this CLI and the JAX package's both ways.
 
-Device: `train`, `test`, `predict` and `eval` take `--device cuda|cpu`
-(default cuda, the counterpart of pointing the JAX CLI at a platform).
-With `cuda` and no CUDA device the command prints "no CUDA device" and
-exits 2; it never carries on on the CPU. `checkpoint inspect` reads
-manifests only and needs no device.
+Device: `train`, `test`, `predict`, `eval` and `serve` take `--device
+cuda|cpu` (default cuda, the counterpart of pointing the JAX CLI at a
+platform). With `cuda` and no CUDA device the command prints "no CUDA
+device" and exits 2; it never carries on on the CPU. `checkpoint
+inspect` reads manifests only and needs no device; `batch` is an HTTP
+client.
+
+`serve` prints one JSON announce line with the JAX CLI's keys
+("serving", "role", "decode", "metrics", ...); `--smoke` starts, announces
+and shuts down. `--transformer SPEC` (a JSON object of TransformerConfig
+fields plus "seed"; "dtype" as "float32" or "bfloat16") initialises the
+LM with the port's own initialiser, which is a pure function of (seed,
+config): every process given the same SPEC holds the same weights, but
+not the JAX CLI's (carry weights across with `weights.params_from_jax`).
 
 The parser takes every subcommand and flag of the JAX CLI, so an argv
-written for it parses. What is not ported yet (`serve`, `fleet`,
-`watchdog`, `batch`, `pipeline`, and train's `--elastic`,
-`--metrics-port`, `--trace`, `--compile-cache`) prints the ROADMAP item
-that brings it and exits 2 before doing anything.
+written for it parses. What is not ported yet (`fleet`, `watchdog`,
+`pipeline`; train's `--elastic`, `--metrics-port`, `--trace`,
+`--compile-cache`; serve's `--compile-cache` and `--warmup-plan PATH`)
+prints the ROADMAP item that brings it and exits 2 before doing
+anything.
 
 Input CSV: one row per example, features then (for train/test) one-hot or
 integer label in the last column(s) — controlled by --label-columns.
@@ -49,11 +61,8 @@ import torch
 
 #: subcommands of the JAX CLI that this port has not taken yet
 NOT_PORTED = {
-    "serve": "ROADMAP Queue 1 item 10 (10g: the HTTP server)",
     "fleet": "ROADMAP Queue 1 item 11 (fleet and router)",
     "watchdog": "ROADMAP Queue 1 item 14 (control plane)",
-    "batch": "ROADMAP Queue 1 item 10 (10d: SLO tiers and the batch "
-             "client)",
     "pipeline": "ROADMAP Queue 1 item 11 (deploy/controller.py)",
 }
 
@@ -67,6 +76,14 @@ FLAGS_NOT_PORTED = {
     ("trace", "--trace"): "ROADMAP Queue 1 item 14 (telemetry/)",
     ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14 "
                                           "(compilecache/)",
+}
+
+#: serve flags of the JAX CLI that this port has not taken yet
+SERVE_FLAGS_NOT_PORTED = {
+    ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14 "
+                                          "(compilecache/)",
+    ("warmup_plan", "--warmup-plan PATH"): "ROADMAP Queue 1 item 14 "
+                                           "(warmup plans)",
 }
 
 
@@ -132,10 +149,14 @@ def _not_ported(name: str):
     return refuse
 
 
-def _refused_flag(args) -> bool:
-    """Print and return True when a flag that is not ported was given."""
-    for (attr, flag), item in FLAGS_NOT_PORTED.items():
-        if getattr(args, attr, None) is not None:
+def _refused_flag(args, table=None, accepted=None) -> bool:
+    """Print and return True when a flag that is not ported was given.
+    `accepted` maps an attribute to the values that are ported (serve's
+    `--warmup-plan auto|off`, `--compile-cache off`)."""
+    accepted = accepted or {}
+    for (attr, flag), item in (table or FLAGS_NOT_PORTED).items():
+        value = getattr(args, attr, None)
+        if value is not None and value not in accepted.get(attr, ()):
             print(f"{flag} is not ported to deeplearning4j_tpu_torch yet: "
                   f"{item}", file=sys.stderr)
             return True
@@ -382,6 +403,375 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_batch(args) -> int:
+    """`batch`: bulk generation through a router (or single replica) on
+    the BATCH SLO tier — the offline lane's reference client
+    (docs/SERVING.md "Priority tiers").
+
+    Reads a JSONL prompt file (each line a bare token list, or an
+    object {"prompt": [...], "max_tokens": N}), drives chunks of
+    --batch-size rows through ``POST /generate`` with
+    ``"priority": "batch"`` (plus the X-Priority header so routers
+    shed/forward without parsing the body), and appends one result
+    line per row to --output. Progress is crash-safe: rows are fsynced
+    to the output BEFORE the cursor journal (StateFile) commits, so a
+    killed client restarts exactly where it stopped — uncommitted tail
+    rows are truncated and re-run, committed rows are never re-emitted
+    (each input row lands in the output exactly once). A 503 shed is
+    waited out via the tier-aware ``retry_after_ms`` the shed reply
+    carries; slot preemptions never surface here at all — the router's
+    durable-stream resume replays them losslessly, and the reply's
+    `preempt_resumes` count is accumulated into the summary."""
+    import hashlib
+    import time as _time
+    import urllib.error
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.serving.errors import (
+        PRIORITY_HEADER, TIER_BATCH)
+    from deeplearning4j_tpu_torch.utils.statefile import StateFile
+
+    rows = []
+    with open(args.input, "rb") as f:
+        raw = f.read()
+    for ln, line in enumerate(raw.decode().splitlines(), 1):
+        line = line.strip()
+        if not line:
+            continue
+        obj = json.loads(line)
+        if isinstance(obj, list):
+            rows.append((obj, args.max_tokens))
+        elif isinstance(obj, dict) and "prompt" in obj:
+            rows.append((obj["prompt"],
+                         int(obj.get("max_tokens", args.max_tokens))))
+        else:
+            print(f"{args.input}:{ln}: each line must be a token list "
+                  "or an object with \"prompt\"", file=sys.stderr)
+            return 2
+    if not rows:
+        print(f"{args.input}: no prompt rows", file=sys.stderr)
+        return 2
+    input_sha = hashlib.sha256(raw).hexdigest()
+
+    journal_path = args.journal or (args.output + ".journal")
+    journal = StateFile(journal_path)
+    state = journal.read()
+    cursor = 0
+    sheds_total = 0
+    preempts_total = 0
+    if state is not None:
+        if state.get("input_sha") != input_sha:
+            print(f"journal {journal_path} was committed against a "
+                  "DIFFERENT input file (sha mismatch); delete the "
+                  "journal (and the output) to start over",
+                  file=sys.stderr)
+            return 2
+        cursor = int(state.get("cursor", 0))
+        sheds_total = int(state.get("sheds", 0))
+        preempts_total = int(state.get("preempt_resumes", 0))
+    resumed_at = cursor
+
+    # reconcile the output against the committed cursor: rows past it
+    # were appended but never committed (crash between the output
+    # fsync and the journal write) — truncate so they re-run; fewer
+    # rows than the cursor promises means the pair was tampered with,
+    # and resuming would silently drop rows
+    if os.path.exists(args.output):
+        with open(args.output, "rb+") as out:
+            data = out.read()
+            ends = [i for i, b in enumerate(data) if b == 0x0A]
+            if len(ends) < cursor:
+                print(f"output {args.output} holds {len(ends)} rows "
+                      f"but the journal committed {cursor}; refusing "
+                      "to resume from an inconsistent pair",
+                      file=sys.stderr)
+                return 2
+            out.truncate(ends[cursor - 1] + 1 if cursor else 0)
+    elif cursor:
+        print(f"journal committed {cursor} rows but output "
+              f"{args.output} is missing; delete the journal to start "
+              "over", file=sys.stderr)
+        return 2
+
+    url = args.url.rstrip("/")
+    headers = {"Content-Type": "application/json",
+               PRIORITY_HEADER: TIER_BATCH}
+    start = _time.perf_counter()
+    out_f = open(args.output, "ab")
+    try:
+        while cursor < len(rows):
+            chunk = rows[cursor:cursor + args.batch_size]
+            body = {"prompt": [r[0] for r in chunk],
+                    "max_tokens": [r[1] for r in chunk],
+                    "priority": TIER_BATCH}
+            if args.eos_id is not None:
+                body["eos_id"] = args.eos_id
+            payload = json.dumps(body).encode()
+            sheds = 0
+            while True:
+                req = urllib.request.Request(url + "/generate",
+                                             data=payload,
+                                             headers=headers)
+                try:
+                    with urllib.request.urlopen(
+                            req, timeout=args.timeout) as r:
+                        reply = json.loads(r.read())
+                    break
+                except urllib.error.HTTPError as e:
+                    raw_err = e.read()
+                    if e.code == 503 and sheds < args.max_shed_retries:
+                        # the batch lane shed us (it sheds FIRST, at
+                        # its own lower high-water mark): wait out the
+                        # backlog-derived Retry-After and try again
+                        sheds += 1
+                        sheds_total += 1
+                        try:
+                            err = json.loads(raw_err)
+                        except ValueError:
+                            err = {}
+                        wait = min(5.0, max(
+                            0.05,
+                            float(err.get("retry_after_ms", 1000))
+                            / 1000.0))
+                        _time.sleep(wait)
+                        continue
+                    print(f"batch: /generate answered {e.code}: "
+                          f"{raw_err.decode(errors='replace')[:200]}",
+                          file=sys.stderr)
+                    return 3
+            if "error" in reply:
+                # a durable-stream router reports an exhausted resume
+                # budget in-band, not as a raw 5xx
+                print(f"batch: generation failed: {reply['error']}",
+                      file=sys.stderr)
+                return 3
+            toks = reply["tokens"]
+            reasons = (reply.get("finish_reasons")
+                       or [None] * len(toks))
+            preempts_total += int(reply.get("preempt_resumes", 0) or 0)
+            for i in range(len(chunk)):
+                out_f.write((json.dumps(
+                    {"row": cursor + i,
+                     "tokens": toks[i],
+                     "finish_reason": reasons[i]}) + "\n").encode())
+            # rows reach disk BEFORE the cursor commits: a crash
+            # between the two re-runs the chunk (truncated on resume),
+            # never skips or duplicates it
+            out_f.flush()
+            os.fsync(out_f.fileno())
+            cursor += len(chunk)
+            journal.write({"input": os.path.abspath(args.input),
+                           "input_sha": input_sha,
+                           "output": os.path.abspath(args.output),
+                           "cursor": cursor,
+                           "total": len(rows),
+                           "sheds": sheds_total,
+                           "preempt_resumes": preempts_total})
+            if args.progress:
+                print(json.dumps({"cursor": cursor,
+                                  "total": len(rows),
+                                  "sheds": sheds_total,
+                                  "preempt_resumes": preempts_total}),
+                      flush=True)
+    finally:
+        out_f.close()
+    print(json.dumps({"batch_done": True,
+                      "rows": len(rows),
+                      "resumed_at": resumed_at,
+                      "output": os.path.abspath(args.output),
+                      "journal": journal_path,
+                      "sheds": sheds_total,
+                      "preempt_resumes": preempts_total,
+                      "seconds": round(_time.perf_counter() - start,
+                                       3)}), flush=True)
+    return 0
+
+
+class _Telemetry:
+    """`serve`'s --metrics-port / --trace: an optional standalone
+    /metrics endpoint for the run's lifetime, and a Chrome-trace dump on
+    exit."""
+
+    def __init__(self, args):
+        self.metrics = None
+        self.trace_path = getattr(args, "trace", None)
+        port = getattr(args, "metrics_port", None)
+        if port is not None:
+            from deeplearning4j_tpu_torch.telemetry.exposition import \
+                start_metrics_server
+
+            self.metrics = start_metrics_server(port=port)
+        if self.trace_path:
+            from deeplearning4j_tpu_torch.telemetry import start_tracing
+
+            start_tracing()
+
+    def announce(self) -> dict:
+        return ({"metrics": self.metrics.url + "/metrics"}
+                if self.metrics is not None else {})
+
+    def close(self) -> dict:
+        out = {}
+        if self.trace_path:
+            from deeplearning4j_tpu_torch.telemetry import \
+                save_chrome_trace
+
+            if save_chrome_trace(self.trace_path):
+                out["trace"] = self.trace_path
+        if self.metrics is not None:
+            self.metrics.close()
+        return out
+
+
+def _transformer_from_spec(spec: str, device):
+    """(params, cfg) from a transformer SPEC: a JSON object (inline or a
+    file path) of TransformerConfig fields plus an optional "seed"
+    ("dtype" as "float32" or "bfloat16"; the JAX-only "interpret" is
+    ignored). Initialisation is a pure function of (seed, config), so
+    every process given the same SPEC holds the same weights."""
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer_params)
+
+    raw = spec
+    if os.path.exists(spec):
+        with open(spec) as f:
+            raw = f.read()
+    fields = json.loads(raw)
+    if not isinstance(fields, dict):
+        raise ValueError("transformer SPEC must be a JSON object")
+    seed = int(fields.pop("seed", 0))
+    fields.pop("interpret", None)
+    if isinstance(fields.get("dtype"), str):
+        fields["dtype"] = getattr(torch, fields["dtype"])
+    cfg = TransformerConfig(**fields)
+    return init_transformer_params(seed, cfg, device=device), cfg
+
+
+def cmd_serve(args) -> int:
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    from deeplearning4j_tpu_torch.serving.server import serve_network
+
+    if _refused_flag(args, SERVE_FLAGS_NOT_PORTED,
+                     accepted={"warmup_plan": ("auto", "off"),
+                               "compile_cache": ("off",)}):
+        return 2
+    device = _device(args)
+    if device is None:
+        return 2
+    tele = _Telemetry(args)
+    try:
+        net = _load_model(args.model, device)
+        n_in = net.conf.confs[0].n_in
+        # initial checkpoint identity for /readyz and /stats: what this
+        # server was launched from (reloads overwrite it)
+        ck = None
+        if os.path.isdir(args.model):
+            from deeplearning4j_tpu_torch.checkpoint.restore import \
+                discover_latest
+            try:
+                _, ck_step = discover_latest(args.model)
+            except Exception:
+                ck_step = None
+            ck = {"path": os.path.abspath(args.model), "step": ck_step}
+        elif not args.model.endswith(".json"):
+            ck = {"path": os.path.abspath(args.model), "step": None}
+        gen = None
+        if args.transformer:
+            params, cfg = _transformer_from_spec(args.transformer, device)
+            gen = InferenceEngine.for_transformer(params, cfg,
+                                                  device=device)
+        draft_params = draft_cfg = None
+        if getattr(args, "draft_model", None):
+            draft_params, draft_cfg = _transformer_from_spec(
+                args.draft_model, device)
+        kernel = "kernel" if args.decode_kernel == "pallas" \
+            else args.decode_kernel
+        handle = serve_network(
+            net, checkpoint=ck, generate_engine=gen,
+            host=args.host, port=args.port, n_replicas=args.replicas,
+            max_batch_size=args.max_batch_size,
+            max_delay_ms=args.max_delay_ms,
+            max_queue=args.max_queue,
+            batch_share=args.batch_share,
+            slots=args.slots, page_size=args.page_size,
+            kv_pages=args.kv_pages,
+            prefix_cache=args.prefix_cache,
+            fleet_kv=args.fleet_kv,
+            kv_ship_timeout=args.kv_ship_timeout,
+            decode_kernel=kernel,
+            horizon=args.horizon,
+            speculation=args.speculation,
+            drafter=args.drafter,
+            draft_params=draft_params, draft_cfg=draft_cfg,
+            draft_window=args.draft_window,
+            warmup_shape=(n_in,) if (args.warmup and n_in) else None,
+            warmup_async=args.warmup_async,
+            warmup_plan=args.warmup_plan,
+            role=args.role, model_id=args.model_id)
+    except BaseException:
+        tele.close()
+        raise
+    # the announce line's "decode" object records the decode
+    # configuration this process actually runs (the JAX CLI's keys)
+    loop = gen.decode_loop if gen is not None else None
+    print(json.dumps({"serving": handle.url,
+                      "role": args.role,
+                      "model_id": args.model_id,
+                      "replicas": len(handle.replicas.engines),
+                      "max_batch_size": args.max_batch_size,
+                      "max_delay_ms": args.max_delay_ms,
+                      "slots": args.slots,
+                      "page_size": args.page_size,
+                      "prefix_cache": args.prefix_cache,
+                      "decode_kernel": args.decode_kernel,
+                      "decode": {
+                          "kernel": {
+                              "requested": args.decode_kernel,
+                              "selected": (loop.decode_kernel
+                                           if loop is not None else None),
+                          },
+                          "prefix_cache": args.prefix_cache,
+                          "fleet_kv": (loop.fleet_kv
+                                       if loop is not None
+                                       else args.fleet_kv),
+                          "slots": args.slots,
+                          "batch_share": args.batch_share,
+                          "page_size": args.page_size,
+                          "kv_pages": (loop.n_pages
+                                       if loop is not None else None),
+                          "horizon": args.horizon,
+                          "speculation": {
+                              "enabled": bool(args.speculation),
+                              "k": args.speculation,
+                              "drafter": (
+                                  loop._drafter.kind
+                                  if loop is not None
+                                  and loop._drafter is not None
+                                  else None),
+                              "draft_window": (
+                                  args.draft_window
+                                  if args.drafter == "model"
+                                  and args.speculation else None),
+                          },
+                      },
+                      "compile_cache": None,
+                      "warmup_plan": None,
+                      "metrics": handle.url + "/metrics",
+                      **tele.announce()}), flush=True)
+    if args.smoke:  # start/stop sanity check (tests, deploy probes)
+        handle.close()
+        tele.close()
+        return 0
+    try:
+        handle.http.thread.join()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        handle.close()
+        tele.close()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
@@ -550,12 +940,13 @@ def build_parser() -> argparse.ArgumentParser:
                               "falls back to plain prefill "
                               "(docs/FLEET.md \"Fleet KV plane\")")
     p_serve.add_argument("--decode-kernel", default="auto",
-                         choices=("auto", "pallas", "gather"),
-                         help="decode attention lane: pallas streams "
-                              "written KV pages from the pool (TPU), "
-                              "gather materializes the dense window; "
-                              "auto picks pallas on TPU inside its "
-                              "envelope (docs/SERVING.md)")
+                         choices=("auto", "kernel", "pallas", "gather"),
+                         help="decode attention lane: kernel (the JAX "
+                              "CLI's `pallas`, taken as an alias) "
+                              "streams written KV pages from the pool "
+                              "with the paged decode kernel, gather "
+                              "materializes the dense window; auto "
+                              "picks the kernel on a CUDA device")
     p_serve.add_argument("--transformer", default=None, metavar="SPEC",
                          help="enable /generate from a deterministically "
                               "initialized transformer: SPEC is a JSON "
@@ -645,7 +1036,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_serve.add_argument("--smoke", action="store_true",
                          help="start, print the address, shut down")
     telemetry_flags(p_serve)
-    p_serve.set_defaults(fn=_not_ported("serve"))
+    device_flag(p_serve)
+    p_serve.set_defaults(fn=cmd_serve)
 
     p_fleet = sub.add_parser(
         "fleet",
@@ -833,7 +1225,7 @@ def build_parser() -> argparse.ArgumentParser:
                               "Retry-After, capped at 5s a beat)")
     p_batch.add_argument("--progress", action="store_true",
                          help="print a JSON progress line per chunk")
-    p_batch.set_defaults(fn=_not_ported("batch"))
+    p_batch.set_defaults(fn=cmd_batch)
 
     p_pipe = sub.add_parser(
         "pipeline",

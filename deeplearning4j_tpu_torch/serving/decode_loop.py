@@ -80,14 +80,40 @@ advancing until a completion frees pages. If every occupied slot is
 stalled and nothing can free a page, the stalled streams fail with an
 error instead of deadlocking.
 
-Not ported yet, and refused by the constructor with NotImplementedError:
-the fleet KV plane and roles other than unified (ROADMAP.md, Queue 1,
-item 10e). `kernel="auto"|"kernel"|"gather"` picks the decode attention
-read (`attention.paged.resolve_decode_kernel`).
+**Fleet KV plane** (`fleet_kv="on"|"affinity-only"|"off"`, default "on",
+forced off without the prefix cache; serving/fleetkv.py): `kv_summary()`
+fingerprints the trie for the readiness probe; `kv_export(tokens)`
+serializes the cached pages covering a prompt's head (the donor half of
+a page ship); `kv_ship(donor_url, tokens)` fetches a donor's pages and
+installs the ones this trie lacks (the receiver half), so the next
+admission prefills only the tail. Any ship failure falls back to plain
+prefill. Installs and prefills run on the scheduler thread (the kv job
+queue serviced at the top of every tick); the pool is written in place.
+
+**Roles** (`role="unified"|"prefill"|"decode"`): a prefill-role loop
+refuses streams and only computes prompt KV into its trie
+(`prefill_only`) for a decode replica to pull over `/kv/export`; it never
+dispatches a decode step, so it never captures a graph. A decode-role
+loop is a unified loop the fleet routes streams at.
+
+Telemetry: dl4j_kv_pages_total / dl4j_kv_pages_in_use /
+dl4j_kv_pages_shared / dl4j_kv_pages_cached / dl4j_decode_active_slots
+gauges, dl4j_decode_requests / dl4j_decode_tokens_streamed /
+dl4j_decode_admission_waits / dl4j_decode_steps / dl4j_decode_shed /
+dl4j_decode_deadline_exceeded / dl4j_decode_cancelled /
+dl4j_kv_prefix_{hits,misses,forks,evictions} / dl4j_spec_* /
+dl4j_tier_* / dl4j_decode_kv_read_bytes{path} counters and the
+dl4j_decode_step_seconds histogram, under the JAX package's names, help
+strings and labels. Chaos points: `decode.step`, `decode.fork`,
+`fleet.kv_summary`, `fleet.kv_ship`, `disagg.handoff`.
+
+`kernel="auto"|"kernel"|"gather"` picks the decode attention read
+(`attention.paged.resolve_decode_kernel`).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -98,10 +124,11 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import default_device
+from deeplearning4j_tpu_torch import default_device, telemetry
 from deeplearning4j_tpu_torch.attention import flash, paged
 from deeplearning4j_tpu_torch.attention.paged import resolve_decode_kernel
 from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+from deeplearning4j_tpu_torch.serving import fleetkv
 from deeplearning4j_tpu_torch.serving.errors import (TIER_BATCH,
                                                      TIER_INTERACTIVE, TIERS,
                                                      Deadline,
@@ -110,7 +137,9 @@ from deeplearning4j_tpu_torch.serving.errors import (TIER_BATCH,
                                                      backlog_retry_ms)
 from deeplearning4j_tpu_torch.serving.paged_kv import (copy_page,
                                                        decode_read_bytes,
+                                                       extract_pages,
                                                        init_paged_pool,
+                                                       install_pages,
                                                        paged_decode_step,
                                                        paged_kv_bytes,
                                                        paged_prefill,
@@ -121,16 +150,26 @@ from deeplearning4j_tpu_torch.serving.paged_kv import (copy_page,
                                                        prompt_buckets)
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixIndex
 from deeplearning4j_tpu_torch.serving.speculation import build_drafter
+from deeplearning4j_tpu_torch.testing import chaos
+from deeplearning4j_tpu_torch.utils.digest import config_digest
 from deeplearning4j_tpu_torch.weights import params_to_device
 
-__all__ = ["GenerationStream", "DecodeLoop"]
+__all__ = ["GenerationStream", "DecodeLoop", "ROLES", "ROLE_UNIFIED",
+           "ROLE_PREFILL", "ROLE_DECODE"]
 
 _DONE = object()
-#: the ROADMAP.md entry each refused option waits on
-_NOT_PORTED = {
-    "fleet_kv": "item 10e, fleet KV plane",
-    "role": "item 10e, disaggregated prefill/decode roles",
-}
+_loop_seq = itertools.count()
+
+#: replica roles: a `unified` loop serves prefill AND decode (the
+#: default); a `prefill` loop only computes prompt KV into its trie for
+#: `/kv/export` handoff (submit is refused, so it never dispatches a
+#: decode step); a `decode` loop is a unified loop the fleet routes
+#: streams at — the tag places work, it does not change loop behaviour
+ROLE_UNIFIED = "unified"
+ROLE_PREFILL = "prefill"
+ROLE_DECODE = "decode"
+ROLES = (ROLE_UNIFIED, ROLE_PREFILL, ROLE_DECODE)
+
 #: per-queued-item service estimate feeding the backlog-derived
 #: Retry-After on a tier shed
 _TIER_ITEM_MS = {TIER_INTERACTIVE: 50.0, TIER_BATCH: 250.0}
@@ -140,10 +179,18 @@ _CAPTURED_LAUNCHES = {"paged_decode": paged.captured_launches,
                       "flash_fwd": flash.captured_launches}
 
 
-def _not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to the PyTorch package yet (ROADMAP.md "
-        f"Queue 1, serving: {_NOT_PORTED[option]})")
+class _Counts(dict):
+    """Per-loop counters mirrored into the telemetry registry: `add(key,
+    n)` bumps the dict (what `snapshot()` reads, exact with telemetry
+    off too) and that key's registry series."""
+
+    def __init__(self, series: dict):
+        super().__init__({key: 0 for key in series})
+        self._series = series
+
+    def add(self, key, n: int = 1) -> None:
+        self[key] += n
+        self._series[key].inc(n)
 
 
 class GenerationStream:
@@ -171,6 +218,11 @@ class GenerationStream:
         self.speculation = True
         #: SLO tier: "interactive" or "batch"
         self.tier = TIER_INTERACTIVE
+        #: absolute index of the FIRST token this stream will emit —
+        #: non-zero for a failover continuation whose delivered tokens
+        #: ride in as prompt; the streaming front end adds it to each
+        #: token's `token_index` (the router's exactly-once dedupe key)
+        self.token_index_base = 0
         self.finish_reason: Optional[str] = None
         self.error: Optional[BaseException] = None
         self._generated: List[int] = []
@@ -207,6 +259,13 @@ class GenerationStream:
                     raise self.error
                 return
             yield item
+
+    def indexed_tokens(self, timeout: Optional[float] = None
+                       ) -> Iterator[tuple]:
+        """`tokens()` with each token's absolute index attached: yields
+        `(token_index_base + n, token)` for the n-th emitted token."""
+        for n, tok in enumerate(self.tokens(timeout=timeout)):
+            yield self.token_index_base + n, tok
 
     @property
     def done(self) -> bool:
@@ -280,17 +339,18 @@ class DecodeLoop:
     def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  horizon: int = 1, max_waiting: Optional[int] = None,
-                 prefix_cache: bool = True, fleet_kv: str = "off",
+                 prefix_cache: bool = True, fleet_kv: str = "on",
+                 kv_ship_timeout: float = 2.0,
                  kernel: str = "auto", speculation: int = 0,
                  drafter: str = "ngram", draft_params=None, draft_cfg=None,
                  draft_window: int = 32, ngram: int = 3,
                  batch_share: float = 0.5,
                  batch_max_waiting: Optional[int] = None,
-                 role: str = "unified", device=None, start: bool = True):
-        if fleet_kv != "off":
-            raise _not_ported("fleet_kv")
-        if role != "unified":
-            raise _not_ported("role")
+                 role: str = ROLE_UNIFIED, device=None, start: bool = True,
+                 name: Optional[str] = None):
+        if role not in ROLES:
+            raise ValueError(
+                f"role must be one of {ROLES}, got {role!r}")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if horizon < 1:
@@ -379,6 +439,43 @@ class DecodeLoop:
             PrefixIndex(self.page_size) if self.prefix_cache_enabled
             else None)
         self._ref = np.zeros((self.n_pages,), np.int32)
+        # fleet KV plane: affinity summaries + peer page shipping. The
+        # plane rides the prefix trie, so without a trie it is off.
+        if fleet_kv not in fleetkv.MODES:
+            raise ValueError(
+                f"fleet_kv must be one of {fleetkv.MODES}, "
+                f"got {fleet_kv!r}")
+        self.fleet_kv = (fleet_kv if self.prefix_cache_enabled
+                         else fleetkv.MODE_OFF)
+        if self.role == ROLE_PREFILL and self.fleet_kv != fleetkv.MODE_ON:
+            # the trie + /kv/export wire ARE a prefill replica's whole
+            # product: without them it could never hand pages to anyone
+            raise ValueError(
+                "a prefill-role loop needs prefix_cache=True and "
+                "fleet_kv='on' — its only output is cached KV pages "
+                "shipped over /kv/export")
+        #: pool-writing jobs (shipped-page installs, handoff prefills)
+        #: queued for the scheduler thread, which runs every device write
+        #: to the pool on its own stream
+        self._kv_jobs: deque = deque()
+        #: cumulative ship stats, reported in the readiness summary
+        self._ship_stats = {"page_ships": 0, "ship_bytes": 0,
+                            "ship_failures": 0}
+        #: CUDA event recorded on the scheduler thread's stream after the
+        #: last write into pages the trie may hold (prefill, install);
+        #: an export read on another thread waits on it (kv_export)
+        self._pool_event = None
+        if kv_ship_timeout <= 0:
+            raise ValueError(f"kv_ship_timeout must be > 0, "
+                             f"got {kv_ship_timeout}")
+        #: default budget for one donor fetch + install (seconds)
+        self.kv_ship_timeout = float(kv_ship_timeout)
+        #: the decode identity a shipped page must match: model config,
+        #: page size, kernel lane, horizon, speculation width, device
+        self.cache_key = (
+            f"decode:{config_digest(cfg)}|ps={self.page_size}"
+            f"|k={self.decode_kernel}|h={self.horizon}"
+            f"|spec={self.spec_k}|dev={self.device}")
 
         # speculative decoding ----------------------------------------
         self._drafter = None
@@ -410,19 +507,7 @@ class DecodeLoop:
         #: (batch bucket, cached-page bucket, tail bucket) of every warm one
         self._prefill_groups: set = set()
         self._prefill_ctx_groups: set = set()
-        self._counts = {"requests": 0, "tokens_streamed": 0, "shed": 0,
-                        "deadline_exceeded": 0, "cancelled": 0,
-                        "admission_waits": 0, "dispatches": 0}
-        self._prefix_counts = {"hits": 0, "misses": 0, "forks": 0,
-                               "evictions": 0}
-        self._spec_counts = {"proposed": 0, "accepted": 0, "rounds": 0}
-        self._tier_requests = {t: 0 for t in TIERS}
-        self._tier_shed = {t: 0 for t in TIERS}
         self._preemptions = 0
-        #: KV bytes the decode attention read must touch, summed over
-        #: token steps: "kernel" = written pages, "gather" = the dense
-        #: window (decode_read_bytes)
-        self._kv_read = {"kernel": 0, "gather": 0}
         #: wall seconds of recent dispatches, through the token copy to
         #: the host (each covers `horizon` token steps, or one verify)
         self.step_seconds: deque = deque(maxlen=4096)
@@ -433,10 +518,161 @@ class DecodeLoop:
         self._closed = False
         self._peak_pages = 0
         self._thread: Optional[threading.Thread] = None
+        self.label = name if name is not None else f"d{next(_loop_seq)}"
+        self._register_metrics()
         if start:
             self._thread = threading.Thread(target=self._run, daemon=True,
-                                            name="decode-loop")
+                                            name=f"decode-loop-{self.label}")
             self._thread.start()
+
+    def _register_metrics(self) -> None:
+        """The loop's telemetry series (the JAX loop's names, help
+        strings and labels); each counter mirrors one `_Counts` key."""
+        reg = telemetry.get_registry()
+        lab = {"loop": self.label}
+
+        def counter(name, help_):
+            return reg.counter(name, help_).labels(**lab)
+
+        self._counts = _Counts({
+            "requests": counter(
+                "dl4j_decode_requests",
+                "generate requests submitted to the slot scheduler"),
+            "tokens_streamed": counter(
+                "dl4j_decode_tokens_streamed",
+                "tokens emitted onto generation streams"),
+            "shed": counter(
+                "dl4j_decode_shed",
+                "generate requests rejected at submit because the "
+                "admission queue was at max_waiting"),
+            "deadline_exceeded": counter(
+                "dl4j_decode_deadline_exceeded",
+                "generate requests shed at submit/admission, or reaped "
+                "mid-flight, because their deadline budget was spent"),
+            "cancelled": counter(
+                "dl4j_decode_cancelled",
+                "generate requests cancelled (client disconnect or "
+                "GenerationStream.cancel) — slot retired, pages freed"),
+            "admission_waits": counter(
+                "dl4j_decode_admission_waits",
+                "scheduler passes where a queued request could not be "
+                "admitted for lack of free pages or slots"),
+            "dispatches": counter(
+                "dl4j_decode_steps",
+                "compiled decode dispatches run (each covers `horizon` "
+                "token steps)"),
+        })
+        self._prefix_counts = _Counts({
+            "hits": counter(
+                "dl4j_kv_prefix_hits",
+                "admissions whose prompt matched >= 1 cached prefix chunk "
+                "(shared pool pages mapped by reference)"),
+            "misses": counter(
+                "dl4j_kv_prefix_misses",
+                "cache-eligible admissions that matched no cached chunk "
+                "(full cold prefill)"),
+            "forks": counter(
+                "dl4j_kv_prefix_forks",
+                "copy-on-write page forks (decode cursor entered a shared "
+                "page; it was duplicated into a private one)"),
+            "evictions": counter(
+                "dl4j_kv_prefix_evictions",
+                "unreferenced cached prefix pages evicted (LRU) to "
+                "satisfy an allocation under page pressure"),
+        })
+        self._spec_counts = _Counts({
+            "proposed": counter(
+                "dl4j_spec_proposed",
+                "draft tokens proposed to speculative verify rounds"),
+            "accepted": counter(
+                "dl4j_spec_accepted",
+                "draft tokens the target model's verify accepted (each "
+                "one a decode dispatch saved)"),
+            "rounds": counter(
+                "dl4j_spec_rounds",
+                "widened verify dispatches run (speculative rounds; plain "
+                "fallback rounds when no slot had a draft are not counted "
+                "here)"),
+        })
+        tscope = {"scope": f"loop:{self.label}"}
+        tier_req = reg.counter(
+            "dl4j_tier_requests",
+            "generate requests submitted per SLO tier (interactive "
+            "goes ahead at admission; batch rides the weighted-fair "
+            "bulk lane)")
+        self._tier_requests = _Counts(
+            {t: tier_req.labels(tier=t, **tscope) for t in TIERS})
+        tier_shed = reg.counter(
+            "dl4j_tier_shed",
+            "generate requests shed at submit per SLO tier (batch "
+            "sheds first, at its own lower batch_max_waiting bound)")
+        self._tier_shed = _Counts(
+            {t: tier_shed.labels(tier=t, **tscope) for t in TIERS})
+        self._m_preempt = reg.counter(
+            "dl4j_tier_preemptions",
+            "batch decode slots preempted for a blocked interactive "
+            "admission (lossless: the row resumes via the router's "
+            "durable-stream record)").labels(tier=TIER_BATCH, **tscope)
+        kv_read = reg.counter(
+            "dl4j_decode_kv_read_bytes",
+            "KV bytes the decode attention read must touch, summed "
+            "over token steps: path=\"kernel\" is the streamed-pages "
+            "figure (written pages only — what the pallas lane reads), "
+            "path=\"gather\" the dense-window figure (the full "
+            "S x max_len reservation); their ratio is the paged "
+            "kernel's traffic win")
+        #: KV bytes the decode attention read must touch, summed over
+        #: token steps: "kernel" = written pages, "gather" = the dense
+        #: window (decode_read_bytes)
+        self._kv_read = _Counts(
+            {path: kv_read.labels(path=path, **lab)
+             for path in ("kernel", "gather")})
+        self._m_step_s = reg.histogram(
+            "dl4j_decode_step_seconds",
+            "wall time of one compiled decode dispatch (covers "
+            "`horizon` token steps), dispatch through the token D2H "
+            "sync").labels(**lab)
+        reg.gauge("dl4j_kv_pages_total",
+                  "usable KV pages in the block pool").labels(**lab).set(
+                      self.n_pages)
+        ref = weakref.ref(self)
+
+        def live(attr, empty=0):
+            return lambda: (lambda o: getattr(o, attr) if o else empty)(
+                ref())
+
+        reg.gauge("dl4j_kv_pages_in_use",
+                  "KV pages currently held by in-flight requests"
+                  ).labels(**lab).set_function(live("pages_in_use"))
+        reg.gauge("dl4j_kv_pages_shared",
+                  "KV pages an in-flight slot may not write without a CoW "
+                  "fork (>= 2 readers, or referenced while cache-retained)"
+                  ).labels(**lab).set_function(live("pages_shared"))
+        reg.gauge("dl4j_kv_pages_cached",
+                  "KV pages retained by the prefix index (the "
+                  "unreferenced ones form the LRU-evictable tier)"
+                  ).labels(**lab).set_function(live("pages_cached"))
+        reg.gauge("dl4j_decode_active_slots",
+                  "slots holding an in-flight request"
+                  ).labels(**lab).set_function(live("occupied_slots"))
+        backlog = reg.gauge(
+            "dl4j_tier_backlog",
+            "generate requests queued for admission per SLO tier (the "
+            "batch figure is the signal the autoscaler and the "
+            "backlog-derived Retry-After key on)")
+        for t in TIERS:
+            backlog.labels(tier=t, **tscope).set_function(
+                (lambda _t: lambda: (lambda o: o._tier_waiting[_t]
+                                     if o else 0)(ref()))(t))
+        reg.gauge("dl4j_spec_acceptance_rate",
+                  "accepted / proposed draft tokens over the loop's "
+                  "lifetime (0.0 while speculation is off or nothing was "
+                  "proposed)").labels(**lab).set_function(
+                      live("spec_acceptance_rate", 0.0))
+
+    def _observe_step(self, seconds: float) -> None:
+        self.step_seconds.append(seconds)
+        self._m_step_s.observe(seconds)
 
     @staticmethod
     def _ctrl_views(buf, s: int, p: int):
@@ -502,29 +738,43 @@ class DecodeLoop:
 
     def submit_many(self, prompts, max_tokens, eos_id: Optional[int] = None,
                     deadline: Optional[Deadline] = None,
-                    prefix_cache: bool = True, speculation: bool = True,
+                    prefix_cache: bool = True, token_index_base=0,
+                    speculation: bool = True,
                     tier: str = TIER_INTERACTIVE) -> List[GenerationStream]:
         """Admit several rows as ONE unit: all rows enqueue or none do.
-        `max_tokens` is one scalar for every row or a per-row sequence.
-        `tier` applies to the whole group; a shed carries the tier and a
-        Retry-After derived from that tier's backlog."""
+        `max_tokens` and `token_index_base` are one scalar for every row
+        or a per-row sequence. `tier` applies to the whole group; a shed
+        carries the tier and a Retry-After derived from that tier's
+        backlog. A prefill-role loop refuses every stream."""
+        if self.role == ROLE_PREFILL:
+            raise ValueError(
+                "this replica has role 'prefill' — it computes prompt "
+                "KV for handoff (/prefill) and serves /kv/export; "
+                "generate streams belong on a decode/unified replica")
         if tier not in TIERS:
             raise ValueError(f"unknown tier {tier!r} (expected one of "
                              f"{TIERS})")
         if deadline is not None and deadline.expired:
             with self._cond:
-                self._counts["deadline_exceeded"] += 1
+                self._counts.add("deadline_exceeded")
             deadline.check("decode admission")  # raises
         per_row_max = self._per_row(max_tokens, len(prompts), "max_tokens")
+        per_row_base = self._per_row(token_index_base, len(prompts),
+                                     "token_index_base")
+        for base in per_row_base:
+            if base < 0:
+                raise ValueError(
+                    f"per-row token_index_base must be >= 0, got {base}")
         prompts = [self.validate(p, mt) for p, mt in zip(prompts,
                                                          per_row_max)]
         streams = [GenerationStream(p, mt, eos_id, deadline=deadline)
                    for p, mt in zip(prompts, per_row_max)]
         loop_ref = weakref.ref(self)
-        for stream in streams:
+        for stream, base in zip(streams, per_row_base):
             stream._loop_ref = loop_ref
             stream.prefix_cache = bool(prefix_cache)
             stream.speculation = bool(speculation)
+            stream.token_index_base = base
             stream.tier = tier
         with self._cond:
             if self._closed:
@@ -541,8 +791,8 @@ class DecodeLoop:
                            and free_slots >= len(prompts))
                 tier_q = self._tier_waiting[tier]
                 if not can_now and tier_q + len(prompts) > bound:
-                    self._counts["shed"] += 1
-                    self._tier_shed[tier] += 1
+                    self._counts.add("shed")
+                    self._tier_shed.add(tier)
                     raise OverloadedError(
                         f"decode admission queue full for tier {tier!r} "
                         f"({tier_q} waiting, "
@@ -550,8 +800,8 @@ class DecodeLoop:
                         retry_after_ms=backlog_retry_ms(
                             tier_q + len(prompts), _TIER_ITEM_MS[tier]),
                         tier=tier)
-            self._counts["requests"] += len(streams)
-            self._tier_requests[tier] += len(streams)
+            self._counts.add("requests", len(streams))
+            self._tier_requests.add(tier, len(streams))
             self._waiting.extend(streams)
             self._tier_waiting[tier] += len(streams)
             self._cond.notify_all()
@@ -607,7 +857,7 @@ class DecodeLoop:
         elif self._prefix is not None:
             page = self._prefix.evict_lru(lambda p: self._ref[p] == 0)
             if page is not None:
-                self._prefix_counts["evictions"] += 1
+                self._prefix_counts.add("evictions")
         else:
             page = None
         if page is not None:
@@ -632,6 +882,13 @@ class DecodeLoop:
     @property
     def occupied_slots(self) -> int:
         return sum(1 for s in self._slot_state if s is not None)
+
+    @property
+    def load(self) -> int:
+        """Live in-flight pressure: queued + occupied slots (the replica
+        set's least-loaded selector keys on it)."""
+        with self._cond:
+            return len(self._waiting) + self.occupied_slots
 
     @property
     def alive(self) -> bool:
@@ -669,6 +926,349 @@ class DecodeLoop:
             graphs = list(self._graphs.values())
         return {name: sum(g.replays * g.launches[name] for g in graphs)
                 for name in _CAPTURED_LAUNCHES}
+
+    # ---- fleet KV plane (serving/fleetkv.py)
+    def kv_summary(self) -> Optional[dict]:
+        """The affinity summary piggybacked on /readyz: cumulative
+        head-chunk fingerprints of every cached trie path (most recent
+        first, capped), plus the cache and ship counters. None while the
+        plane is off. Only tokens the trie retains are fingerprinted;
+        opted-out requests never seeded it."""
+        if self._prefix is None or self.fleet_kv == fleetkv.MODE_OFF:
+            return None
+        # chaos: a summary-build fault must degrade the replica to "no
+        # affinity signal", never fail the health probe
+        chaos.hit("fleet.kv_summary")
+        with self._cond:
+            return {
+                "v": 1,
+                "mode": self.fleet_kv,
+                "role": self.role,
+                "page_size": self.page_size,
+                "heads": fleetkv.summary_heads(self._prefix,
+                                               self.page_size),
+                "pages_cached": self.pages_cached,
+                "hits": self._prefix_counts["hits"],
+                "misses": self._prefix_counts["misses"],
+                **self._ship_stats,
+            }
+
+    def kv_export(self, tokens: Sequence[int],
+                  max_chunks: Optional[int] = None) -> Optional[bytes]:
+        """Donor half of a page ship: serialize this replica's cached
+        pages covering `tokens`' head chunks (crc-framed, no pickle —
+        fleetkv.pack_pages). None when shipping is off. Runs on the HTTP
+        handler thread; only the bookkeeping takes the lock.
+
+        The matched pages are PINNED (reader refcount) for the read:
+        eviction takes only refcount-zero pages, and a writer forks away
+        from a trie-retained page, so no one writes them while they are
+        read. Their bytes were written on the scheduler thread's stream;
+        the read waits on the CUDA event recorded after the last such
+        write (`_pool_event`) instead of going through the kv job queue,
+        so an export never waits for a decode tick and the scheduler
+        never blocks on a device-to-host copy it does not need. The
+        matched pages of every layer are gathered with one
+        `index_select` per tensor and brought to the host in ONE copy
+        (`paged_kv.extract_pages`)."""
+        if self._prefix is None or self.fleet_kv != fleetkv.MODE_ON:
+            return None
+        with self._cond:
+            matched = self._prefix.match(tokens)
+            if max_chunks is not None:
+                matched = matched[:int(max_chunks)]
+            for page in matched:
+                self._ref[page] += 1  # pin across the export read
+            written = self._pool_event
+        try:
+            # chaos: donor faults mid-ship (a "hang" rule holds the pins
+            # open — the export-vs-eviction drills ride this window)
+            chaos.hit("fleet.kv_ship", role="export", chunks=len(matched))
+            if written is not None:
+                torch.cuda.current_stream(self.device).wait_event(written)
+            chunks = extract_pages(self._pool, matched)
+        finally:
+            with self._cond:
+                for page in matched:
+                    self._release_page(page)
+                self._cond.notify_all()
+        meta = {
+            "v": 1,
+            "cache_key": self.cache_key,
+            "page_size": self.page_size,
+            "chunks": len(matched),
+            "layers": self.cfg.n_layers,
+            "shape": [self.cfg.n_heads, self.page_size,
+                      self.cfg.d_model // self.cfg.n_heads],
+        }
+        return fleetkv.pack_pages(meta, chunks)
+
+    def kv_ship(self, donor_url: str, tokens: Sequence[int],
+                timeout: Optional[float] = None) -> int:
+        """Receiver half: fetch the donor's cached pages for `tokens`'
+        head chunks and install whatever this trie is missing. Returns
+        the number of pages installed; 0 on ANY failure (transport,
+        framing, crc, identity, pool pressure, chaos) — the caller's
+        admission prefills the same tokens regardless. Safe from any
+        thread: the install runs on the scheduler thread (`_kv_jobs`)."""
+        if self._prefix is None or self.fleet_kv != fleetkv.MODE_ON:
+            return 0
+        n_full = len(tokens) // self.page_size
+        if n_full == 0 or not donor_url:
+            return 0
+        with self._cond:
+            covered = len(self._prefix.match(tokens))
+        if covered >= n_full:
+            return 0  # already warm locally — nothing worth a fetch
+        if timeout is None:
+            timeout = self.kv_ship_timeout
+        try:
+            # chaos: receiver-side fetch faults (transport flakes)
+            chaos.hit("fleet.kv_ship", role="fetch", donor=donor_url)
+            payload = fleetkv.fetch_pages(
+                donor_url, tokens[:n_full * self.page_size], timeout,
+                max_chunks=n_full)
+            header, chunks = fleetkv.unpack_pages(payload)
+            if header.get("cache_key") != self.cache_key:
+                raise fleetkv.ShipError(
+                    "donor/receiver decode identity mismatch — "
+                    "refusing pages from a different model, page "
+                    "size, kernel lane, or device")
+            if not chunks:
+                raise fleetkv.ShipError("donor had no cached pages")
+            installed = self._kv_install(tokens, chunks, timeout)
+        except Exception:
+            with self._cond:
+                self._ship_stats["ship_failures"] += 1
+            return 0
+        if installed:
+            with self._cond:
+                self._ship_stats["page_ships"] += installed
+                self._ship_stats["ship_bytes"] += len(payload)
+        return installed
+
+    def _kv_install(self, tokens, chunks, timeout: float) -> int:
+        """Hand an install to the scheduler thread and wait for it."""
+        job = {"tokens": list(tokens), "chunks": chunks,
+               "event": threading.Event(), "result": {}}
+        self._enqueue_kv_job(job, timeout, "install did not complete "
+                                           "within the ship budget")
+        err = job["result"].get("error")
+        if err is not None:
+            raise err
+        return int(job["result"].get("installed", 0))
+
+    def _enqueue_kv_job(self, job: dict, timeout: float,
+                        expiry_msg: str) -> None:
+        """Route one pool-writing job through the scheduler thread (or
+        run it inline with no scheduler running) and wait it out."""
+        if self.alive:
+            with self._cond:
+                if self._closed:
+                    job["result"]["error"] = RuntimeError(
+                        "decode loop is closed")
+                    return
+                self._kv_jobs.append(job)
+                self._cond.notify_all()
+            if not job["event"].wait(timeout=max(1.0, float(timeout))):
+                job["result"].setdefault(
+                    "error", fleetkv.ShipError(expiry_msg))
+        else:
+            self._run_kv_job(job)
+
+    def prefill_only(self, tokens: Sequence[int],
+                     timeout: Optional[float] = None) -> dict:
+        """Handoff source: compute KV for `tokens`' FULL page-aligned
+        head chunks into this replica's pool and adopt the pages into the
+        prefix trie as cached pages — where `/kv/export` reads from —
+        without starting a stream or dispatching a decode step. A fully
+        covered head is a cheap no-op. Raises on pool pressure or chaos
+        faults (the router then falls back to plain prefill on the
+        decode replica). Returns {"chunks", "covered", "cached",
+        "kv_bytes"}."""
+        if self._prefix is None:
+            raise ValueError(
+                "prefill_only needs the prefix cache: the trie is "
+                "where handoff pages live until /kv/export ships them")
+        n_full = len(tokens) // self.page_size
+        if n_full == 0:
+            # sub-page prompts have no trie key — nothing to hand off
+            return {"chunks": 0, "covered": 0, "cached": 0,
+                    "kv_bytes": 0}
+        job = {"kind": "prefill", "tokens": [int(t) for t in tokens],
+               "event": threading.Event(), "result": {}}
+        if timeout is None:
+            timeout = max(30.0, self.kv_ship_timeout)
+        self._enqueue_kv_job(job, timeout, "prefill handoff did not "
+                                           "complete within its budget")
+        err = job["result"].get("error")
+        if err is not None:
+            raise err
+        return job["result"]["report"]
+
+    def _apply_prefill_only(self, tokens) -> dict:
+        """Scheduler-thread half of `prefill_only`: pin the cached head
+        run, allocate pages for the uncovered chunks, run the same
+        bucketed prefill admission uses (batch 1), adopt the pages into
+        the trie, release every pin — the page invariant holds at every
+        exit."""
+        ps = self.page_size
+        head = [int(t) for t in tokens[:(len(tokens) // ps) * ps]]
+        n_full = len(head) // ps
+        # chaos: a handoff fault on the export side
+        chaos.hit("disagg.handoff", role="export", chunks=n_full)
+        with self._cond:
+            matched = self._prefix.match(head)
+            covered = len(matched)
+            need = n_full - covered
+            page_bytes = paged_kv_bytes(self.cfg, 1, self.page_size)
+            if need <= 0:
+                return {"chunks": n_full, "covered": covered,
+                        "cached": 0, "kv_bytes": n_full * page_bytes}
+            for page in matched:
+                self._ref[page] += 1
+            fresh: List[int] = []
+            if self._avail_pages() >= need:
+                for _ in range(need):
+                    fresh.append(self._alloc_page())
+        try:
+            if len(fresh) < need:
+                raise OverloadedError(
+                    f"prefill handoff needs {need} pages but the pool "
+                    f"has no headroom "
+                    f"({len(self._free)}/{self.n_pages} free)",
+                    retry_after_ms=1000)
+            cov_tok = covered * ps
+            tl = len(head) - cov_tok
+            tb = next(b for b in self._buckets if b >= tl)
+            padded = np.zeros((1, tb), np.int32)
+            padded[0, :tl] = head[cov_tok:]
+            lens = np.full((1,), tl, np.int32)
+            pids = np.full((1, tb // ps), self._trash, np.int32)
+            pids[0, :len(fresh)] = fresh
+            if covered == 0:
+                self._prefill_groups.add((1, tb))
+                paged_prefill(self.params, self._to_device(padded),
+                              self._to_device(lens), self._pool,
+                              self._to_device(pids), self.cfg)
+            else:
+                cb = min(_pow2(covered), self._pps)
+                ctab = np.full((1, cb), self._trash, np.int32)
+                ctab[0, :covered] = matched
+                clen = np.full((1,), cov_tok, np.int32)
+                self._prefill_ctx_groups.add((1, cb, tb))
+                paged_prefill_ctx(
+                    self.params, self._to_device(padded),
+                    self._to_device(lens), self._pool,
+                    self._to_device(pids), self._to_device(ctab),
+                    self._to_device(clen), self.cfg)
+            self._mark_pool_written()
+            self._prefill_token_count += tl
+            with self._cond:
+                adopted = self._prefix.insert(head, matched + fresh)
+                self._ship_stats["prefill_handoffs"] = (
+                    self._ship_stats.get("prefill_handoffs", 0) + 1)
+            return {"chunks": n_full, "covered": covered,
+                    "cached": adopted, "kv_bytes": n_full * page_bytes}
+        finally:
+            with self._cond:
+                for page in matched + fresh:
+                    self._release_page(page)
+                self._cond.notify_all()
+
+    def _mark_pool_written(self) -> None:
+        """Record, on the scheduler thread's stream, the event an export
+        read on another thread waits on before reading pool pages."""
+        if self.device.type != "cuda":
+            return
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        with self._cond:
+            self._pool_event = event
+
+    def _service_kv_jobs(self) -> None:
+        """Scheduler-thread drain of queued kv jobs — at the top of every
+        tick, before admission, so an install that lands between ticks
+        warms the very next `_admit` match."""
+        while True:
+            with self._cond:
+                if not self._kv_jobs:
+                    return
+                job = self._kv_jobs.popleft()
+            self._run_kv_job(job)
+
+    def load_params(self, params) -> None:
+        """Hot reload: copy new weights (the same structure, shapes and
+        dtypes) into the loop's params IN PLACE, on the scheduler thread
+        between dispatches — the captured graphs read the params'
+        storage, so they are never rebound. A dispatch sees all old or
+        all new weights."""
+        job = {"kind": "params", "params": params,
+               "event": threading.Event(), "result": {}}
+        self._enqueue_kv_job(job, 60.0, "params reload did not complete")
+        err = job["result"].get("error")
+        if err is not None:
+            raise err
+
+    def _run_kv_job(self, job: dict) -> None:
+        try:
+            if job.get("kind") == "params":
+                _copy_params(self.params, job["params"])
+            elif job.get("kind") == "prefill":
+                job["result"]["report"] = self._apply_prefill_only(
+                    job["tokens"])
+            else:
+                job["result"]["installed"] = self._kv_apply_install(
+                    job["tokens"], job["chunks"])
+        except Exception as e:
+            job["result"]["error"] = e
+        finally:
+            job["event"].set()
+
+    def _drain_kv_jobs(self, exc: BaseException) -> None:
+        with self._cond:
+            while self._kv_jobs:
+                job = self._kv_jobs.popleft()
+                job["result"]["error"] = exc
+                job["event"].set()
+
+    def _kv_apply_install(self, tokens, chunks) -> int:
+        """Install shipped chunk K/V beyond this trie's coverage: pin the
+        matched path (an eviction during our own allocations must not
+        take it), allocate fresh pages (free list first, LRU eviction
+        second), write the bytes in place (`install_pages`), adopt the
+        pages into the trie, drop every pin — adopted pages land in the
+        cached tier like a retired prompt's. Runs on the scheduler
+        thread."""
+        ps = self.page_size
+        with self._cond:
+            matched = self._prefix.match(tokens)
+            covered = len(matched)
+            depth = min(len(chunks), len(tokens) // ps)
+            if depth <= covered:
+                return 0
+            need = depth - covered
+            for page in matched:
+                self._ref[page] += 1
+            fresh: List[int] = []
+            if self._avail_pages() >= need:
+                for _ in range(need):
+                    fresh.append(self._alloc_page())
+        try:
+            if len(fresh) < need:
+                raise fleetkv.ShipError(
+                    "pool has no headroom for shipped pages")
+            install_pages(self._pool, fresh, chunks[covered:depth])
+            self._mark_pool_written()
+            with self._cond:
+                adopted = self._prefix.insert(
+                    tokens[:depth * ps], matched + fresh)
+            return adopted
+        finally:
+            with self._cond:
+                for page in matched + fresh:
+                    self._release_page(page)
+                self._cond.notify_all()
 
     def snapshot(self) -> dict:
         with self._cond:
@@ -724,7 +1324,7 @@ class DecodeLoop:
                     "cached_unreferenced": self._cached_unref(),
                     "nodes": self.pages_cached,
                 },
-                "fleet_kv": {"mode": "off"},
+                "fleet_kv": {"mode": self.fleet_kv, **self._ship_stats},
                 "speculation": {
                     "enabled": bool(self.spec_k),
                     "k": self.spec_k,
@@ -760,10 +1360,12 @@ class DecodeLoop:
         while True:
             with self._cond:
                 while (not self._closed and not self._waiting
+                       and not self._kv_jobs
                        and self.occupied_slots == 0):
                     self._cond.wait(timeout=0.1)
                 if (self._closed and not self._waiting
                         and self.occupied_slots == 0):
+                    self._drain_kv_jobs(RuntimeError("decode loop closed"))
                     return
             try:
                 self.tick()
@@ -774,6 +1376,7 @@ class DecodeLoop:
                 return
 
     def _fail_all(self, exc: BaseException) -> None:
+        self._drain_kv_jobs(exc)
         with self._cond:
             self._deferred = []
             for i, slot in enumerate(self._slot_state):
@@ -794,6 +1397,12 @@ class DecodeLoop:
         retire finished slots. Returns True if a dispatch ran. Public so
         tests (and `start=False` callers) can drive the loop."""
         self._reap()
+        # shipped-page installs and handoff prefills land before
+        # admission, so the very next `_admit` match sees them
+        self._service_kv_jobs()
+        # chaos: a "delay" rule paces every scheduler pass; an "error"
+        # drills the fail-loudly path in _run
+        chaos.hit("decode.step")
         self._admit()
         ran = self._dispatch_spec() if self.spec_k else \
             self._dispatch_plain()
@@ -835,11 +1444,11 @@ class DecodeLoop:
                     continue
                 stream = slot.stream
                 if stream.cancelled:
-                    self._counts["cancelled"] += 1
+                    self._counts.add("cancelled")
                     self._retire(i, slot, "cancelled")
                 elif (stream.deadline is not None
                       and stream.deadline.expired):
-                    self._counts["deadline_exceeded"] += 1
+                    self._counts.add("deadline_exceeded")
                     self._retire(i, slot, "deadline_exceeded",
                                  error=DeadlineExceededError(
                                      "deadline exceeded mid-generation",
@@ -864,6 +1473,7 @@ class DecodeLoop:
         if victim is None:
             return False
         self._preemptions += 1
+        self._m_preempt.inc()
         self._retire(victim, self._slot_state[victim], "preempted")
         used.discard(victim)
         return True
@@ -888,13 +1498,13 @@ class DecodeLoop:
                 if stream.cancelled:
                     self._waiting.remove(stream)
                     self._tier_waiting[stream.tier] -= 1
-                    self._counts["cancelled"] += 1
+                    self._counts.add("cancelled")
                     stream._finish("cancelled")
                     continue
                 if stream.deadline is not None and stream.deadline.expired:
                     self._waiting.remove(stream)
                     self._tier_waiting[stream.tier] -= 1
-                    self._counts["deadline_exceeded"] += 1
+                    self._counts.add("deadline_exceeded")
                     stream._finish(
                         "deadline_exceeded", DeadlineExceededError(
                             "deadline exceeded while queued for a decode "
@@ -904,7 +1514,7 @@ class DecodeLoop:
                 if (not interactive and batch_held >= self._batch_slot_cap
                         and inter_held > 0):
                     # weighted-fair share while interactive work is live
-                    self._counts["admission_waits"] += 1
+                    self._counts.add("admission_waits")
                     break
                 plen = len(stream.prompt)
                 idx = next((i for i in range(self.slots) if i not in used),
@@ -915,7 +1525,7 @@ class DecodeLoop:
                     idx = next((i for i in range(self.slots)
                                 if i not in used), None)
                 if idx is None:
-                    self._counts["admission_waits"] += 1
+                    self._counts.add("admission_waits")
                     break
                 # the longest cached run of FULL chunks is mapped by
                 # reference; only the uncovered tail is prefilled
@@ -935,7 +1545,7 @@ class DecodeLoop:
                 if self._avail_pages() < need:
                     for page in matched:
                         self._release_page(page)
-                    self._counts["admission_waits"] += 1
+                    self._counts.add("admission_waits")
                     break
                 self._waiting.remove(stream)
                 self._tier_waiting[stream.tier] -= 1
@@ -952,7 +1562,7 @@ class DecodeLoop:
                                              "the availability check")
                     pages.append(page)
                 if use_cache:
-                    self._prefix_counts["hits" if matched else "misses"] += 1
+                    self._prefix_counts.add("hits" if matched else "misses")
                 admitted.append((idx, stream, pages, plen, covered))
             if admitted:
                 self._peak_pages = max(self._peak_pages, self.pages_in_use)
@@ -1032,6 +1642,8 @@ class DecodeLoop:
             self._install_prefilled(group,
                                     torch.argmax(logits, dim=-1)
                                     .to(torch.int32))
+        if cold or warm:
+            self._mark_pool_written()
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -1082,7 +1694,7 @@ class DecodeLoop:
                 if stop > length:
                     stop = self._cow_guard(i, slot, length, stop)
                 if stop <= length and slot.stop_len > length:
-                    self._counts["admission_waits"] += 1  # page-starved
+                    self._counts.add("admission_waits")  # page-starved
                 if stop != self._stop[i]:
                     self._stop[i] = stop
                     self._dirty = True
@@ -1103,6 +1715,7 @@ class DecodeLoop:
             if new is None:
                 return max(length, j * ps)
             try:
+                chaos.hit("decode.fork")
                 copy_page(self._pool, page, new)
             except BaseException:
                 self._release_page(new)
@@ -1111,7 +1724,7 @@ class DecodeLoop:
             self._table[i, j] = new
             slot.no_cache.add(new)
             self._release_page(page)
-            self._prefix_counts["forks"] += 1
+            self._prefix_counts.add("forks")
             self._dirty = True
         return stop
 
@@ -1201,14 +1814,21 @@ class DecodeLoop:
         self._d_ctrl.copy_(torch.from_numpy(self._h_ctrl))
 
     # ---- plain dispatch (horizon token steps)
+    def _runnable(self) -> List[int]:
+        """Occupied slots with room to advance. Caller holds the lock."""
+        return [i for i, s in enumerate(self._slot_state)
+                if s is not None and self._stop[i] > self._lengths[i]]
+
     def _dispatch_plain(self) -> bool:
         self._grant_pages()
+        with self._cond:
+            if not self._runnable():
+                return False
+        # captured at the first dispatch that runs a slot (so a loop
+        # that never decodes, e.g. a prefill-role one, captures nothing)
         self._ensure_graph("step")
         with self._cond:
-            runnable = [i for i, s in enumerate(self._slot_state)
-                        if s is not None and self._stop[i] > self._lengths[i]]
-            if not runnable:
-                return False
+            runnable = self._runnable()
             before = self._lengths.copy()
             if self._dirty:
                 self._upload_step()
@@ -1225,17 +1845,17 @@ class DecodeLoop:
         self._run_program("step")
         # the (K, S) token copy to the host is the sync the streams need
         toks = self._d_out.cpu().numpy()
-        self.step_seconds.append(time.perf_counter() - t0)
-        self._counts["dispatches"] += 1
+        self._observe_step(time.perf_counter() - t0)
+        self._counts.add("dispatches")
         # KV read accounting mirroring the chain: inner step k runs at
         # cursor before+k, clamped at each slot's stop bound
         advance = np.maximum(self._stop - before, 0)
         for k in range(self.horizon):
             cur = before + np.minimum(k, advance)
-            self._kv_read["kernel"] += decode_read_bytes(self._pool, cur,
-                                                         self._pps)
-            self._kv_read["gather"] += decode_read_bytes(
-                self._pool, cur, self._pps, dense=True)
+            self._kv_read.add("kernel", decode_read_bytes(
+                self._pool, cur, self._pps))
+            self._kv_read.add("gather", decode_read_bytes(
+                self._pool, cur, self._pps, dense=True))
         self._flush_first_tokens()  # emit firsts BEFORE chunk tokens
         for i in runnable:
             slot = self._slot_state[i]
@@ -1259,6 +1879,8 @@ class DecodeLoop:
         on the host, run ONE (S, k+1) verify, accept the longest run
         matching the target's argmax plus the target's own token, roll
         back by not moving the cursor past it."""
+        if self.occupied_slots == 0:
+            return False
         # both graphs up front, so no capture stalls a live round
         self._ensure_graph("step")
         self._ensure_graph("verify")
@@ -1267,8 +1889,7 @@ class DecodeLoop:
             self._dirty = True  # firsts never reached the device carry
         self._grant_pages()
         with self._cond:
-            runnable = [i for i, s in enumerate(self._slot_state)
-                        if s is not None and self._stop[i] > self._lengths[i]]
+            runnable = self._runnable()
             if not runnable:
                 return False
             before = self._lengths.copy()
@@ -1316,7 +1937,7 @@ class DecodeLoop:
             n = len(prop)
             tokens[i, 1:1 + n] = prop
             widths[i] = 1 + n
-            self._spec_counts["proposed"] += n
+            self._spec_counts.add("proposed", n)
         v_tokens, v_lengths, v_widths, v_table = self._verify_views(
             self._vh_ctrl)
         v_tokens[:] = tokens
@@ -1327,17 +1948,17 @@ class DecodeLoop:
         self._vd_ctrl.copy_(torch.from_numpy(self._vh_ctrl))
         self._run_program("verify")
         out = self._v_out.cpu().numpy()  # (S, W) argmax
-        self.step_seconds.append(time.perf_counter() - t0)
-        self._counts["dispatches"] += 1
-        self._spec_counts["rounds"] += 1
+        self._observe_step(time.perf_counter() - t0)
+        self._counts.add("dispatches")
+        self._spec_counts.add("rounds")
         # column j of slot i attends at cursor before+j (clamped to its
         # real width)
         for j in range(int(widths.max())):
             cur = before + np.minimum(j, np.maximum(widths - 1, 0))
-            self._kv_read["kernel"] += decode_read_bytes(self._pool, cur,
-                                                         self._pps)
-            self._kv_read["gather"] += decode_read_bytes(
-                self._pool, cur, self._pps, dense=True)
+            self._kv_read.add("kernel", decode_read_bytes(
+                self._pool, cur, self._pps))
+            self._kv_read.add("gather", decode_read_bytes(
+                self._pool, cur, self._pps, dense=True))
         for i in runnable:
             slot = self._slot_state[i]
             if slot is None:
@@ -1349,7 +1970,7 @@ class DecodeLoop:
             with self._cond:
                 self._lengths[i] = before[i] + m + 1
             if prop:
-                self._spec_counts["accepted"] += m
+                self._spec_counts.add("accepted", m)
             for j in range(m + 1):
                 tok = int(out[i, j])
                 self._pending[i] = tok
@@ -1383,7 +2004,7 @@ class DecodeLoop:
                                token: int) -> None:
         stream = slot.stream
         stream._emit(token)
-        self._counts["tokens_streamed"] += 1
+        self._counts.add("tokens_streamed")
         if stream.eos_id is not None and token == stream.eos_id:
             self._retire(idx, slot, "eos")
         elif slot.emitted >= stream.max_tokens:
@@ -1409,6 +2030,20 @@ class DecodeLoop:
             self._dirty = True
             self._cond.notify_all()  # admissions may proceed
         slot.stream._finish(reason, error)
+
+
+@torch.no_grad()
+def _copy_params(dst, src) -> None:
+    """Copy a tree of tensors into another of the same structure, in
+    place (each leaf converted to the destination's device)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_params(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            _copy_params(d, s)
+    else:
+        dst.copy_(torch.as_tensor(src).to(dst.device))
 
 
 def _pow2(n: int) -> int:

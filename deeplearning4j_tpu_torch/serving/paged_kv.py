@@ -28,8 +28,9 @@ never read unmasked.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import default_device
@@ -43,7 +44,9 @@ from deeplearning4j_tpu_torch.serving.kv_cache import _ffn, _heads
 __all__ = ["PagedKVPool", "init_paged_pool", "paged_kv_bytes",
            "pages_per_slot", "pages_for_tokens", "prompt_buckets",
            "paged_prefill", "paged_prefill_ctx", "paged_decode_step",
-           "paged_verify_step", "copy_page", "decode_read_bytes"]
+           "paged_verify_step", "copy_page", "decode_read_bytes",
+           "extract_pages", "extract_page", "install_pages",
+           "install_page"]
 
 
 class PagedKVPool:
@@ -172,6 +175,95 @@ def copy_page(pool: PagedKVPool, src, dst) -> PagedKVPool:
         layer["k"][dst].copy_(layer["k"][src])
         layer["v"][dst].copy_(layer["v"][src])
     return pool
+
+
+@torch.no_grad()
+def extract_pages(pool: PagedKVPool, pages: Sequence[int]) -> List[list]:
+    """Host copies of the physical `pages` across every layer — the fleet
+    KV plane's export read (serving/fleetkv.py). One `index_select` per
+    layer tensor gathers the pages on the device, ONE copy brings them to
+    the host; returns, per page, a list of (k, v) CPU tensors of shape
+    (n_heads, page_size, head_dim), one pair per layer (views of that one
+    host buffer). The caller orders the read after the writes it must
+    see (decode_loop.DecodeLoop.kv_export)."""
+    if not pages:
+        return []
+    dev = pool.layers[0]["k"].device
+    idx = torch.tensor([int(p) for p in pages], dtype=torch.long,
+                       device=dev)
+    host = torch.stack([layer[name].index_select(0, idx)
+                        for layer in pool.layers
+                        for name in ("k", "v")]).cpu()
+    # host: (2 * layers, pages, H, ps, hd)
+    return [[(host[2 * li, j], host[2 * li + 1, j])
+             for li in range(len(pool.layers))]
+            for j in range(len(pages))]
+
+
+def extract_page(pool: PagedKVPool, page: int) -> list:
+    """`extract_pages` of one page: a list of (k, v) per layer."""
+    return extract_pages(pool, [page])[0]
+
+
+def _host_page(arr, like: torch.Tensor) -> torch.Tensor:
+    """A shipped page (a CPU tensor, or a numpy array — a bfloat16 page
+    as its raw `np.uint16` bits) as a CPU tensor of the pool's dtype."""
+    if isinstance(arr, torch.Tensor):
+        t = arr
+    else:
+        a = np.ascontiguousarray(arr)
+        if like.dtype == torch.bfloat16 and a.dtype == np.uint16:
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+    if t.dtype != like.dtype:
+        raise ValueError(f"shipped page dtype {t.dtype} != pool dtype "
+                         f"{like.dtype}")
+    return t
+
+
+@torch.no_grad()
+def install_pages(pool: PagedKVPool, pages: Sequence[int],
+                  chunks: Sequence) -> PagedKVPool:
+    """Write shipped pages into the pool IN PLACE: `chunks[j][l] = (k,
+    v)` (the `extract_pages` shape, CPU tensors or numpy arrays) lands at
+    pool index `pages[j]`. One host-to-device copy of every page, then
+    one `index_copy_` per layer tensor on the caller's stream: the pool
+    keeps its storage, so the captured decode graphs that read its
+    addresses stay valid."""
+    if len(pages) != len(chunks):
+        raise ValueError(f"{len(pages)} pages for {len(chunks)} chunks")
+    if not pages:
+        return pool
+    want = tuple(pool.layers[0]["k"].shape[1:])
+    like = pool.layers[0]["k"]
+    per_tensor = [[] for _ in range(2 * len(pool.layers))]
+    for chunk in chunks:
+        if len(chunk) != len(pool.layers):
+            raise ValueError(
+                f"shipped page has {len(chunk)} layers, pool has "
+                f"{len(pool.layers)}")
+        for li, (k, v) in enumerate(chunk):
+            for n, arr in enumerate((k, v)):
+                t = _host_page(arr, like)
+                if tuple(t.shape) != want:
+                    raise ValueError(
+                        f"shipped page shape {tuple(t.shape)} != pool "
+                        f"page shape {want}")
+                per_tensor[2 * li + n].append(t)
+    dev = torch.stack([torch.stack(ts) for ts in per_tensor]).to(
+        like.device)
+    idx = torch.tensor([int(p) for p in pages], dtype=torch.long,
+                       device=like.device)
+    for li, layer in enumerate(pool.layers):
+        layer["k"].index_copy_(0, idx, dev[2 * li])
+        layer["v"].index_copy_(0, idx, dev[2 * li + 1])
+    return pool
+
+
+def install_page(pool: PagedKVPool, page: int, chunk) -> PagedKVPool:
+    """`install_pages` of one page: `chunk[l] = (k, v)` per layer."""
+    return install_pages(pool, [page], [chunk])
 
 
 @torch.no_grad()

@@ -1,0 +1,72 @@
+"""Telemetry plane of the port: metrics registry, span tracing,
+Prometheus exposition, device gauges.
+
+A copy of the JAX package's `telemetry/` with the same metric names,
+help strings and labels, so a scrape of the port's server reads like a
+scrape of the JAX server. Every hot path publishes into ONE
+process-global `MetricsRegistry`:
+
+- serving: `dl4j_serve_requests{engine=}`, rows/padded/errors,
+  `dl4j_serve_latency_seconds`, `dl4j_serve_bucket_forwards`,
+  `dl4j_batcher_*` + queue depth, the decode loop's `dl4j_decode_*`,
+  `dl4j_kv_*` and `dl4j_tier_*` series, `dl4j_serve_reloads`;
+- device: `dl4j_device_count`, `dl4j_device_memory_bytes{device=,stat=}`
+  (sampled from `torch.cuda.memory_stats()` on the card) and
+  `dl4j_jit_programs{cache=}` (programs built a cache: bucket shapes run,
+  CUDA graphs captured);
+- chaos: `dl4j_chaos_injected{point=,kind=}`.
+
+The training series of the JAX package (`dl4j_train_*`, the guardian's
+and the checkpoint writer's counters) are not emitted by the port yet
+(ROADMAP Queue 1 item 14).
+
+Export: `GET /metrics` (Prometheus text) and `GET /snapshot` (JSON) on
+the serving server or a standalone `exposition.start_metrics_server()`.
+Tracing: `span("name")` regions with Chrome-trace export and an opt-in
+`torch.profiler.record_function` bridge (trace.py).
+"""
+
+from deeplearning4j_tpu_torch.telemetry.registry import (  # noqa: F401
+    DEFAULT_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    enabled,
+    get_registry,
+    set_enabled,
+)
+from deeplearning4j_tpu_torch.telemetry.trace import (  # noqa: F401
+    SpanRecord,
+    Tracer,
+    active_tracer,
+    chrome_trace,
+    save_chrome_trace,
+    span,
+    start_tracing,
+    stop_tracing,
+    tracing,
+)
+
+__all__ = [
+    "MetricsRegistry", "Counter", "Gauge", "Histogram", "DEFAULT_BUCKETS",
+    "get_registry", "set_enabled", "enabled",
+    "counter", "gauge", "histogram",
+    "span", "start_tracing", "stop_tracing", "tracing", "active_tracer",
+    "chrome_trace", "save_chrome_trace", "Tracer", "SpanRecord",
+]
+
+
+def counter(name: str, help: str = ""):
+    """Get-or-create a counter family on the global registry."""
+    return get_registry().counter(name, help)
+
+
+def gauge(name: str, help: str = ""):
+    """Get-or-create a gauge family on the global registry."""
+    return get_registry().gauge(name, help)
+
+
+def histogram(name: str, help: str = "", **kw):
+    """Get-or-create a histogram family on the global registry."""
+    return get_registry().histogram(name, help, **kw)

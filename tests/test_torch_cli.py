@@ -48,7 +48,7 @@ from deeplearning4j_tpu_torch.scaleout.checkpoint import load_checkpoint
 
 REPO = Path(__file__).resolve().parents[1]
 PARAM_TOL = 1e-5
-DEVICE_COMMANDS = ("train", "test", "predict", "eval")
+DEVICE_COMMANDS = ("train", "test", "predict", "eval", "serve")
 
 
 def run(pkg, *argv):
@@ -352,11 +352,8 @@ def test_a_checkpoint_of_one_cli_tests_in_the_other(ws, direction, kind):
 
 # --------------------------------------------------- not ported, device
 UNPORTED = {
-    "serve": (["serve", "-m", "m.ckpt"], "item 10"),
     "fleet": (["fleet", "-m", "m.ckpt"], "item 11"),
     "watchdog": (["watchdog", "--", "train"], "item 14"),
-    "batch": (["batch", "--url", "http://127.0.0.1:9", "-i", "p.jsonl",
-               "-o", "o.jsonl"], "item 10"),
     "pipeline": (["pipeline", "--checkpoint-dir", "ck"], "item 11"),
     "--elastic": (["train", "-i", "d.csv", "-m", "c.json", "-o", "m.ckpt",
                    "--elastic", "2"], "item 14"),
@@ -381,6 +378,27 @@ def test_unported_commands_exit_2_naming_their_item(what, tmp_path):
         os.chdir(cwd)
     assert rc == 2 and out == ""
     assert what.lstrip("-") in err and f"ROADMAP Queue 1 {item}" in err
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flag,value", [("--compile-cache", "auto"),
+                                        ("--compile-cache", "cache"),
+                                        ("--warmup-plan", "plan.json")])
+def test_serve_refuses_the_compile_cache_and_plan_files(flag, value,
+                                                        tmp_path):
+    """serve's --compile-cache (but `off`) and --warmup-plan PATH (but
+    `auto` / `off`) wait for ROADMAP item 14: exit 2 before anything
+    starts or is written."""
+    argv = ["serve", "-m", "m.ckpt", flag, value, "--smoke"]
+    jcli.build_parser().parse_args(argv)
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        rc, out, err = run("port", *argv)
+    finally:
+        os.chdir(cwd)
+    assert rc == 2 and out == ""
+    assert flag in err and "ROADMAP Queue 1 item 14" in err
     assert not os.listdir(tmp_path)
 
 

@@ -485,12 +485,20 @@ class TestLoopMatchesJax:
         assert fn(loop) == jax_runs(name)
 
     def test_prefix_cache_is_on_by_default(self, params):
-        _, tp = params
+        jp, tp = params
         loop = DecodeLoop(tp, CFG, device="cpu", start=False)
         assert loop.prefix_cache_enabled
         snap = loop.snapshot()
         assert snap["prefix_cache"]["enabled"] is True
-        assert snap["fleet_kv"] == {"mode": "off"}
+        # the fleet_kv block reads as the JAX loop's, with the plane at
+        # its default (on) and off
+        for kw in ({}, {"fleet_kv": "off"}):
+            ref = JaxLoop(jp, JAX_CFG, kernel="gather", start=False, **kw)
+            ours = DecodeLoop(tp, CFG, device="cpu", start=False, **kw)
+            assert ours.snapshot()["fleet_kv"] == \
+                ref.snapshot()["fleet_kv"]
+        assert snap["fleet_kv"] == {"mode": "on", "page_ships": 0,
+                                    "ship_bytes": 0, "ship_failures": 0}
 
 
 class TestThreaded:

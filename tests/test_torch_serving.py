@@ -244,16 +244,34 @@ class TestGreedyTokens:
 
 class TestLoopContracts:
     def test_unported_options_raise_not_implemented(self, params):
-        """The fleet KV plane and the disaggregated roles (ROADMAP item
-        10e) are still refused, by the loop and through the engine."""
-        _, tp = params
-        for kw in ({"fleet_kv": "on"}, {"fleet_kv": "summary"},
-                   {"role": "decode"}, {"role": "prefill"}):
-            with pytest.raises(NotImplementedError, match="ROADMAP.*10e"):
+        """Every `fleet_kv` mode and `role` of the JAX package is taken
+        now; an unknown mode or role raises the JAX package's ValueError,
+        through the loop and through the engine, and so does a
+        prefill-role loop without the full plane."""
+        jp, tp = params
+        cases = (({"fleet_kv": "summary"}, "fleet_kv must be one of"),
+                 ({"role": "router"}, "role must be one of"),
+                 ({"role": "prefill", "fleet_kv": "affinity-only"},
+                  "prefill-role loop needs"),
+                 ({"role": "prefill", "prefix_cache": False},
+                  "prefill-role loop needs"))
+        for kw, msg in cases:
+            with pytest.raises(ValueError, match=msg):
+                JaxLoop(jp, JAX_CFG, kernel="gather", start=False, **kw)
+            with pytest.raises(ValueError, match=msg):
                 DecodeLoop(tp, CFG, device="cpu", start=False, **kw)
-            with pytest.raises(NotImplementedError, match="ROADMAP.*10e"):
+            with pytest.raises(ValueError, match=msg):
                 InferenceEngine.for_transformer(tp, CFG, decode_slots=2,
                                                 device="cpu", **kw)
+        for mode in ("on", "affinity-only", "off"):
+            for role in ("unified", "decode", "prefill"):
+                if role == "prefill" and mode != "on":
+                    continue
+                loop = DecodeLoop(tp, CFG, device="cpu", start=False,
+                                  fleet_kv=mode, role=role)
+                assert (loop.fleet_kv, loop.role) == (mode, role)
+        assert DecodeLoop(tp, CFG, device="cpu", start=False,
+                          prefix_cache=False).fleet_kv == "off"
 
     def test_scheduler_error_reaches_the_caller(self, params, monkeypatch):
         _, tp = params
@@ -631,10 +649,13 @@ class TestEngineOptions:
             ours = inspect.signature(getattr(InferenceEngine, name))
             ref = inspect.signature(getattr(JaxEngine, name))
             for pname, p in ours.parameters.items():
-                if pname in ref.parameters and pname != "fleet_kv":
+                if pname in ref.parameters:
                     assert p.default == ref.parameters[pname].default, pname
         assert inspect.signature(InferenceEngine.start_decode_loop) \
-            .parameters["fleet_kv"].default == "off"
+            .parameters["fleet_kv"].default == "on"
+        assert inspect.signature(DecodeLoop).parameters[
+            "fleet_kv"].default == inspect.signature(JaxLoop).parameters[
+            "fleet_kv"].default == "on"
 
     def test_generate_stream_speculation_opt_out(self, params):
         jp, tp = params

@@ -204,6 +204,13 @@ class TestImportIsolation:
     def test_port_and_chip_smoke_import_no_jax(self):
         code = ("import sys; sys.path.insert(0, sys.argv[1]); "
                 "import deeplearning4j_tpu_torch.serving, "
+                "deeplearning4j_tpu_torch.serving.server, "
+                "deeplearning4j_tpu_torch.serving.fleetkv, "
+                "deeplearning4j_tpu_torch.telemetry, "
+                "deeplearning4j_tpu_torch.telemetry.device, "
+                "deeplearning4j_tpu_torch.testing.chaos, "
+                "deeplearning4j_tpu_torch.utils.statefile, "
+                "deeplearning4j_tpu_torch.cli, "
                 "deeplearning4j_tpu_torch.weights, chip_smoke; "
                 "bad = [m for m in sys.modules if m == 'jax' "
                 "or m.startswith('jax.') or m == 'deeplearning4j_tpu' "
