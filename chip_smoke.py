@@ -126,6 +126,42 @@ prints no result):
                   balanced. Ship bytes, ms a shipped page, handoff TTFT
                   against unified cold TTFT. K1 on the prefill role and
                   K4 on the decode role counted as the "disagg" path.
+5f. fleet        — the fleet and its router (serving/fleet.py,
+                  serving/router.py) over replicas of the same model (8
+                  slots, page_size 16, 512 pages each). (a) Two
+                  serve_network servers on threads of this process, attached
+                  by URL behind serve_fleet: phase 5's 16 requests through
+                  the router, half streamed, twice (the first round captures
+                  both loops' step graphs, one at a time; the timed round
+                  runs outside the prefix cache), identical to an in-process
+                  DecodeLoop or near-ties; a mid-stream failover (a chaos
+                  reset of the serving replica's stream): token_index
+                  gapless and without duplicates, dl4j_fleet_stream_resumes
+                  >= 1 on the router's /metrics, the resumed tokens equal
+                  the uninterrupted run's or the first difference is a near-
+                  tie (the survivor re-prefills prompt + delivered through
+                  K1 or the float32 context path, the victim decoded them
+                  through K4: in bf16 not bit-identical); a rolling /reload
+                  of the served network from a step-7 checkpoint: 200, both
+                  replicas report step 7 on /readyz, /predict equal to the
+                  saved network, the tokens of a request unchanged, every
+                  pool balanced. (b) Two `cli serve --device cuda` processes
+                  spawned by ReplicaSpawner, sharing the card (weights from
+                  the same SPEC and seed): the same two rounds through the
+                  router, identical to the in-process loop or near-ties;
+                  each child's /stats shows decode-graph launches > 0 (read
+                  there: the children's launches are not counted on any
+                  path); after Fleet.close(stop_replicas=True) no child or
+                  process group is left. Boot-to-ready seconds, tokens/s and
+                  TTFT p50 through the router (two processes time-slice one
+                  card: not gated). (c) A prefill-role and a decode-role
+                  server attached; the router drives /prefill and then
+                  kv_donor for the disagg phase's 16 prompts: 16 handoffs,
+                  none failed, the decode replica prefills only the tails,
+                  the prefill replica ran no dispatch and captured no graph,
+                  the tokens equal the disagg phase's handoff or are near-
+                  ties, every pool balanced. K1 and K4 in (a) and (c)
+                  counted as the "fleet" path.
 6. train_parity — full width cut to 2 layers, float32, 2 x 301 tokens:
                   lm_loss and every gradient leaf on the card (K1 with its
                   lse, K2, K3) against the same weights on the CPU (plain
@@ -259,7 +295,8 @@ prints no result):
                   equals activate, a 5-beam 20-step beam search returns
                   sorted beams; ms a step by CUDA events, tokens/s,
                   kernels a step and busy share, ms a beam tick.
-The phases 16-18 write under build/chip_smoke_cli/ and remove it.
+The phases 16-18 write under build/chip_smoke_cli/ and remove it; phase
+5f writes under build/chip_smoke_fleet/ and removes it.
 
 Then, at each path's shapes: each kernel's time beside its plain
 version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3;
@@ -268,8 +305,8 @@ whole prefill, decode step and training step, each profiled; K1, K2 and
 K3 also at the attention stack's shape (B*H 1024, T 28, hd 128, not
 causal), and K1 at the model drafter's shape. The kernels' launches
 are counted per path, a captured graph's replays included (serve,
-serve_features, spec, draft, http, disagg, train, multilayer, solver,
-guardian, cli).
+serve_features, spec, draft, http, disagg, fleet, train, multilayer,
+solver, guardian, cli).
 The last lines are the card as nvidia-smi gives it, the kernels' JSON
 line (with each kernel's design), and
 {"ok": true, "device": {...}}.
@@ -1479,6 +1516,19 @@ def http_generate(url, prompt, max_tokens, stream, **body):
     return toks, first, (time.perf_counter() - t0) * 1e3
 
 
+def clients_in_a_process(url, prompts, streamed):
+    """Phase 5's requests at once from clients in a process of their own
+    (CLIENT_PROCESS, outside the prefix cache): (wall s, [(tokens, ms to
+    the first streamed token or None)])."""
+    sub = subprocess.run(
+        [sys.executable, "-c", CLIENT_PROCESS, url, json.dumps(prompts),
+         str(MAX_TOKENS), json.dumps(sorted(streamed))],
+        capture_output=True, text=True, timeout=600,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    rec = json.loads(sub.stdout)
+    return rec["wall_s"], [tuple(r) for r in rec["rows"]]
+
+
 def concurrently(fns):
     """Run each callable on its own thread; their results in order (an
     exception in any is raised here)."""
@@ -1667,14 +1717,7 @@ def phase_http_serve(device, seed, params, timer):
             return run
 
         def in_a_process():
-            sub = subprocess.run(
-                [sys.executable, "-c", CLIENT_PROCESS, url,
-                 json.dumps(prompts), str(MAX_TOKENS), json.dumps(streamed)],
-                capture_output=True, text=True, timeout=600,
-                env={k: v for k, v in os.environ.items()
-                     if k != "PYTHONPATH"})
-            rec = json.loads(sub.stdout)
-            return rec["wall_s"], [tuple(r) for r in rec["rows"]]
+            return clients_in_a_process(url, prompts, streamed)
 
         # timed round: all clients at once, outside the prefix cache
         timed_toks, timed_rec = timed_round(in_threads())
@@ -1762,22 +1805,30 @@ def phase_http_serve(device, seed, params, timer):
 
 
 # ------------------------------------------- disaggregated prefill/decode
-def phase_disagg(device, seed, params, timer):
-    """Three servers on the one card, each fleet_kv "on": role prefill,
-    role decode and unified. 16 prompts on a 256-token head (serve_features'
-    chat traffic): /prefill on the prefill server, then /generate on the
-    decode server naming it as kv_donor. The same prompts on the unified
-    server cold (outside the prefix cache) and warm (its own /prefill,
-    then /generate)."""
-    from deeplearning4j_tpu_torch.serving import ReplicaSet, serve_network
-    from deeplearning4j_tpu_torch.testing import chaos
-
+def disagg_prompts(seed):
+    """The disagg phase's traffic: 16 prompts on one 256-token head with
+    tails of 16-256 tokens, and a lone prompt nobody caches."""
     rng = np.random.default_rng(seed + 50)
     head = rng.integers(0, FULL.vocab_size, SF_HEAD).tolist()
     tails = rng.integers(SF_TAIL[0], SF_TAIL[1] + 1, N_REQUESTS).tolist()
     prompts = [head + rng.integers(0, FULL.vocab_size, t).tolist()
                for t in tails]
     lone = rng.integers(0, FULL.vocab_size, SF_HEAD + 40).tolist()
+    return prompts, tails, lone
+
+
+def phase_disagg(device, seed, params, timer, shared):
+    """Three servers on the one card, each fleet_kv "on": role prefill,
+    role decode and unified. 16 prompts on a 256-token head (serve_features'
+    chat traffic): /prefill on the prefill server, then /generate on the
+    decode server naming it as kv_donor. The same prompts on the unified
+    server cold (outside the prefix cache) and warm (its own /prefill,
+    then /generate). The handoff tokens go to `shared["disagg_handoff"]`
+    for the fleet phase's router-driven handoff."""
+    from deeplearning4j_tpu_torch.serving import ReplicaSet, serve_network
+    from deeplearning4j_tpu_torch.testing import chaos
+
+    prompts, tails, lone = disagg_prompts(seed)
     predict = ReplicaSet([InferenceEngine.for_network(
         MultiLayerNetwork(mlp_conf("bfloat16"), device=device))])
     handles, loops = {}, {}
@@ -1902,6 +1953,7 @@ def phase_disagg(device, seed, params, timer):
                 - fails},
             "pools_balanced": {r: page_balance(loops[r]) for r in loops},
             "pages_in_use": {r: end[r]["pages_in_use"] for r in end}})
+        shared["disagg_handoff"] = handoff
         ok = (handoff == warm and near_ties(cold_diffs, TOL[FULL.dtype],
                                             FULL.dtype)
               and pages_equal
@@ -1916,6 +1968,377 @@ def phase_disagg(device, seed, params, timer):
     finally:
         for h in handles.values():
             h.close()
+    out["ok"] = ok
+    return out
+
+
+# ------------------------------------------ the fleet and its router
+#: the fleet phase: replicas, the router's monitor (probes on a card
+#: whose host threads the decode loops keep busy get a generous timeout),
+#: the step a rolling /reload pins, the failover's chaos ordinal
+FLEET_REPLICAS, FLEET_RELOAD_STEP, FLEET_RESET_AT = 2, 7, 3
+FLEET_MONITOR = {"heartbeat_interval": 0.5, "heartbeat_timeout": 30.0,
+                 "probe_timeout": 10.0}
+FLEET_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"
+
+
+def stream_events(url, body, timeout=600):
+    """One streamed /generate: [(seconds since the request, event)]."""
+    from urllib import request
+
+    req = request.Request(url + "/generate",
+                          data=json.dumps({**body, "stream": True}).encode(),
+                          headers={"Content-Type": "application/json"})
+    t0, events = time.perf_counter(), []
+    with request.urlopen(req, timeout=timeout) as r:
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            if line.strip():
+                events.append((time.perf_counter() - t0, json.loads(line)))
+    return events
+
+
+def router_round(url, prompts, streamed, **body):
+    """Phase 5's requests at once through a router, the streamed ones
+    streamed: (each row's tokens, record with tokens/s and TTFT p50)."""
+    t0 = time.perf_counter()
+    res = concurrently([
+        lambda i=i: http_generate(url, prompts[i], MAX_TOKENS,
+                                  i in streamed, **body)
+        for i in range(len(prompts))])
+    wall = time.perf_counter() - t0
+    ttft = [r[1] for r in res if r[1] is not None]
+    return [r[0] for r in res], {
+        "wall_s": wall, "tokens_per_s": sum(len(r[0]) for r in res) / wall,
+        "ttft_ms_streamed": ttft, "ttft_ms_p50": pct(ttft, 0.5)}
+
+
+def fleet_series(url, label) -> dict:
+    """This fleet's dl4j_fleet_* samples on the router's /metrics."""
+    text = http_get(url + "/metrics")[1].decode()
+    return {ln.split("{")[0]: float(ln.split()[-1])
+            for ln in text.splitlines()
+            if ln.startswith("dl4j_fleet_") and f'fleet="{label}"' in ln
+            and "_bucket{" not in ln}
+
+
+def group_gone(proc) -> bool:
+    """The spawned replica and every process of its group have exited."""
+    if proc.poll() is None:
+        return False
+    try:
+        os.killpg(proc.pid, 0)
+    except ProcessLookupError:
+        return True
+    except PermissionError:
+        return False
+    return False
+
+
+def phase_fleet(device, seed, params, timer, shared):
+    """The fleet and its router (serving/fleet.py, serving/router.py)
+    over replica servers on the card, at full width (the 110M bf16 LM, 8
+    slots, page_size 16, 512 pages a replica).
+
+    (a) Two serve_network servers on threads of this process, attached
+        by URL behind serve_fleet: phase 5's 16 requests through the
+        router (half streamed) against an in-process DecodeLoop; a
+        mid-stream failover (a chaos reset of the serving replica's
+        stream, as the JAX package's in-process drills do: the router
+        re-prefills prompt + delivered on the survivor, through K1 or
+        the float32 context path where the victim decoded those tokens
+        through K4, so in bf16 the resumed tokens are held identical or
+        near-ties, not bit-identical); a rolling /reload of the served
+        network from a step-N checkpoint. K1 and K4 counted (the
+        wrappers and both loops' graph replays) as the "fleet" path.
+    (b) Two `cli serve --device cuda` processes spawned by ReplicaSpawner
+        sharing the card: the same requests through the router; each
+        child's /stats shows its decode-graph launches (read there, not
+        counted on the fleet path); Fleet.close(stop_replicas=True)
+        leaves no process group behind.
+    (c) A prefill-role and a decode-role server attached; the router
+        drives /prefill and then kv_donor itself for the disagg phase's
+        prompts: tail-only prefill on the decode replica, no graph on
+        the prefill replica, tokens as the disagg phase's handoff. K1
+        and K4 counted on the "fleet" path."""
+    from deeplearning4j_tpu_torch.checkpoint import ShardedModelSaver
+    from deeplearning4j_tpu_torch.serving import (Fleet, ReplicaSet,
+                                                  ReplicaSpawner,
+                                                  serve_fleet, serve_network)
+    from deeplearning4j_tpu_torch.testing import chaos
+
+    out, ok = {"card": nvidia_smi()}, True
+    prompts = serve_requests(seed)
+    streamed = set(range(0, N_REQUESTS, 2))
+    ref_toks, ref_rec = in_process_reference(params, prompts, device)
+    launches = {"flash_fwd": 0, "paged_decode": 0}
+
+    def count(loops, graphs_before):
+        torch.cuda.synchronize()
+        for name, mod in (("flash_fwd", flash), ("paged_decode", paged)):
+            launches[name] += mod.launches + sum(
+                lp.graph_launches()[name] - g[name]
+                for lp, g in zip(loops, graphs_before))
+
+    # ------------------------------------- (a) attached, in process
+    nets = [MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+            for _ in range(FLEET_REPLICAS)]
+    gens = [InferenceEngine.for_transformer(params, FULL, device=device)
+            for _ in range(FLEET_REPLICAS)]
+    handles = [serve_network(net, generate_engine=gen, slots=SLOTS,
+                             page_size=PAGE_SIZE, kv_pages=SF_PAGES,
+                             max_delay_ms=2.0, warmup_shape=(784,))
+               for net, gen in zip(nets, gens)]
+    loops = [g.decode_loop for g in gens]
+    fleet = Fleet(**FLEET_MONITOR)
+    router = None
+    a = {}
+    try:
+        for h in handles:
+            fleet.attach(h.url)
+        fleet.wait_ready(FLEET_REPLICAS, timeout=120)
+        router = serve_fleet(fleet)
+        graphs_before = [lp.graph_launches() for lp in loops]
+        paged.launches = flash.launches = 0
+        # the first round captures both loops' step graphs (one at a
+        # time); the second, outside the prefix cache, is the timed one
+        first, a["router_first"] = router_round(router.url, prompts,
+                                                streamed)
+        toks, a["router"] = router_round(router.url, prompts, streamed,
+                                         prefix_cache=False)
+        a.update({"in_process": {k: ref_rec[k] for k in (
+                      "tokens_per_s", "ttft_ms_p50", "wall_s")},
+                  "equal_in_process": sum(x == y for x, y in
+                                          zip(toks, ref_toks)),
+                  "first_round_equal_in_process": sum(
+                      x == y for x, y in zip(first, ref_toks)),
+                  "served": [h.stats()["generate"]["decode"]["requests"]
+                             for h in handles]})
+        ok = ok and all(n > 0 for n in a["served"])
+
+        # failover: the serving replica's stream resets mid-stream
+        victim = max(range(N_REQUESTS), key=lambda i: len(prompts[i]))
+        body = {"prompt": [prompts[victim]], "max_tokens": MAX_TOKENS}
+        clean = stream_events(router.url, body)
+        chaos.configure([chaos.Rule("generate.midstream", "reset",
+                                    at=[FLEET_RESET_AT])])
+        try:
+            hit = stream_events(router.url, body)
+        finally:
+            chaos.deactivate()
+        resumed = [(t, e) for t, e in hit if "token" in e]
+        clean_toks = [e["token"] for _, e in clean if "token" in e]
+        times = [t for t, _ in resumed]
+        gaps = [(y - x) * 1e3 for x, y in zip(times, times[1:])]
+        series = fleet_series(router.url, fleet.label)
+        done = hit[-1][1]
+        a["failover"] = {
+            "prompt_tokens": len(prompts[victim]),
+            "token_index_gapless": [e["token_index"] for _, e in resumed]
+            == list(range(MAX_TOKENS)),
+            "resumes": done.get("resumes"),
+            "equal_uninterrupted": [e["token"] for _, e in resumed]
+            == clean_toks,
+            "ms_failover_to_resumed_token": max(gaps),
+            "ms_between_tokens_p50": pct(gaps, 0.5),
+            "stream_resumes_total": series.get(
+                "dl4j_fleet_stream_resumes_total", 0.0),
+            "stream_tokens_replayed_total": series.get(
+                "dl4j_fleet_stream_tokens_replayed_total", 0.0)}
+        ok = (ok and a["failover"]["token_index_gapless"]
+              and done.get("done") is True and done.get("resumes", 0) >= 1
+              and a["failover"]["stream_resumes_total"] >= 1)
+
+        # rolling /reload of the served network from a step-N checkpoint
+        fleet.wait_ready(FLEET_REPLICAS, timeout=60)
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+        ck = FLEET_DIR / "mlp"
+        with ShardedModelSaver(str(ck)) as saver:
+            saver.save(nets[0], step=FLEET_RELOAD_STEP, wait=True)
+        probe = {"prompt": [prompts[0][:64]], "max_tokens": 16,
+                 "prefix_cache": False}
+        before = http_post(router.url + "/generate", probe)["tokens"]
+        t0 = time.perf_counter()
+        reload = http_post(router.url + "/reload",
+                           {"path": str(ck), "step": FLEET_RELOAD_STEP})
+        reload_s = time.perf_counter() - t0
+        after = http_post(router.url + "/generate", probe)["tokens"]
+        steps = [json.loads(http_get(h.url + "/readyz")[1])["checkpoint"]
+                 for h in handles]
+        x = np.round(np.random.default_rng(seed + 60).uniform(
+            size=(32, 784)), 3).astype(np.float32)
+        with torch.no_grad():
+            want = nets[0].output(torch.from_numpy(x).to(device)).float()
+        got = torch.tensor(http_post(router.url + "/predict",
+                                     {"inputs": x.tolist()})["outputs"])
+        a["reload"] = {
+            "reloaded": reload.get("reloaded"), "seconds": reload_s,
+            "replicas": len(reload.get("replicas", [])),
+            "readyz_checkpoints": steps,
+            "tokens_unchanged": before == after,
+            "predict_max_abs_err": max_err(got, want.cpu()),
+            "pools_balanced": [page_balance(lp) for lp in loops]}
+        ok = (ok and reload.get("reloaded") is True
+              and all(c and c["step"] == FLEET_RELOAD_STEP for c in steps)
+              and before == after
+              and a["reload"]["predict_max_abs_err"] <= TOL[torch.bfloat16]
+              and all(a["reload"]["pools_balanced"]))
+        # counted before the reference runs: its forward passes go
+        # through the counting K1 wrapper too
+        count(loops, graphs_before)
+        a["launches"] = dict(launches)
+        diffs = first_differences(params, FULL, prompts, ref_toks, toks)
+        diffs += first_differences(params, FULL, prompts, ref_toks, first)
+        fo_diffs = first_differences(
+            params, FULL, [prompts[victim]], [clean_toks],
+            [[e["token"] for _, e in resumed]])
+        a["first_differences"] = diffs
+        a["failover"]["first_differences"] = fo_diffs
+        ok = (ok and near_ties(diffs, TOL[FULL.dtype], FULL.dtype)
+              and near_ties(fo_diffs, TOL[FULL.dtype], FULL.dtype))
+        a["fleet_stats"] = {k: v for k, v in
+                            json.loads(http_get(router.url + "/stats")[1])[
+                                "fleet"].items()
+                            if k in ("states", "requests", "evictions",
+                                     "readmissions", "stream_resumes",
+                                     "stream_tokens_replayed", "reloads")}
+    finally:
+        if router is not None:
+            router.close()
+        else:
+            fleet.close()
+        for h in handles:
+            h.close()
+    out["attached"] = a
+    del handles, loops, gens
+
+    # ------------------------------------------- (b) spawned replicas
+    FLEET_DIR.mkdir(parents=True, exist_ok=True)
+    conf = FLEET_DIR / "conf.json"
+    conf.write_text(mlp_conf("bfloat16").to_json())
+    spec = json.dumps({"vocab_size": FULL.vocab_size,
+                       "d_model": FULL.d_model, "n_heads": FULL.n_heads,
+                       "n_layers": FULL.n_layers, "d_ff": FULL.d_ff,
+                       "max_len": FULL.max_len, "dtype": "bfloat16",
+                       "seed": seed})
+    repo = str(Path(__file__).resolve().parent)
+    spawner = ReplicaSpawner(
+        str(conf), env=dict(os.environ, PYTHONPATH=repo),
+        serve_args=["--transformer", spec, "--device", "cuda",
+                    "--slots", str(SLOTS), "--page-size", str(PAGE_SIZE),
+                    "--kv-pages", str(SF_PAGES), "--max-delay-ms", "2"])
+    fleet = Fleet(spawner=spawner, **FLEET_MONITOR)
+    router, b = None, {}
+    spawned_procs = []
+    try:
+        t0 = time.time()
+        reps = fleet.spawn(FLEET_REPLICAS)
+        spawned_procs = [r.proc for r in reps]
+        fleet.wait_ready(FLEET_REPLICAS, timeout=300)
+        b["boot_to_ready_s"] = [r.admitted_at - t0 for r in reps]
+        router = serve_fleet(fleet)
+        first, b["router_first"] = router_round(router.url, prompts,
+                                                streamed)
+        toks, b["router"] = router_round(router.url, prompts, streamed,
+                                         prefix_cache=False)
+        diffs = first_differences(params, FULL, prompts, ref_toks, toks)
+        diffs += first_differences(params, FULL, prompts, ref_toks, first)
+        b["equal_in_process"] = sum(x == y for x, y in zip(toks, ref_toks))
+        b["first_round_equal_in_process"] = sum(
+            x == y for x, y in zip(first, ref_toks))
+        b["first_differences"] = diffs
+        child = [r.client.stats()["generate"]["decode"] for r in reps]
+        b["children"] = [{
+            "pid": r.proc.pid, "requests": c["requests"],
+            "decode_graph_launches": c["decode_graphs"]["kernel_launches"],
+            "decode_step_programs": c["decode_step_programs"],
+            "pages_in_use": c["pages_in_use"]} for r, c in zip(reps, child)]
+        ok = (ok and near_ties(diffs, TOL[FULL.dtype], FULL.dtype)
+              and all(c["decode_graph_launches"]["paged_decode"] > 0
+                      for c in b["children"]))
+    finally:
+        if router is not None:
+            router.close(stop_replicas=True)
+        else:
+            fleet.close(stop_replicas=True)
+    b["no_process_left"] = all(group_gone(p) for p in spawned_procs)
+    ok = ok and b["no_process_left"] and len(spawned_procs) == FLEET_REPLICAS
+    out["spawned"] = b
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+
+    # ----------------------------- (c) the router's disaggregated handoff
+    d_prompts, _, lone = disagg_prompts(seed)
+    predict = ReplicaSet([InferenceEngine.for_network(
+        MultiLayerNetwork(mlp_conf("bfloat16"), device=device))])
+    roles = {}
+    for role in ("prefill", "decode"):
+        gen = InferenceEngine.for_transformer(params, FULL, device=device)
+        roles[role] = (serve_network(
+            replicas=predict, generate_engine=gen, slots=SLOTS,
+            page_size=PAGE_SIZE, kv_pages=SF_PAGES, fleet_kv="on",
+            kv_ship_timeout=60.0, role=role), gen.decode_loop)
+    fleet = Fleet(**FLEET_MONITOR)
+    router, c = None, {}
+    try:
+        for h, _ in roles.values():
+            fleet.attach(h.url)
+        fleet.wait_ready(2, timeout=120)
+        router = serve_fleet(fleet, fleet_kv="on")
+        dec = roles["decode"][1]
+        pre = roles["prefill"][1]
+        # capture the decode replica's step graph outside the handoffs
+        http_generate(roles["decode"][0].url, lone[:24], 4, False,
+                      prefix_cache=False)
+        before = dec.snapshot()
+        graphs_before = [lp.graph_launches() for lp in (pre, dec)]
+        paged.launches = flash.launches = 0
+        toks, ttft = [], []
+        for p in d_prompts:
+            t, first, _ = http_generate(router.url, p, MAX_TOKENS, True)
+            toks.append(t)
+            ttft.append(first)
+        count((pre, dec), graphs_before)
+        end, pre_snap = dec.snapshot(), pre.snapshot()
+        disagg = json.loads(http_get(router.url + "/stats")[1])[
+            "fleet"]["disagg"]
+        ref = shared["disagg_handoff"]
+        diffs = first_differences(params, FULL, d_prompts, ref, toks)
+        tail = sum(len(p) % PAGE_SIZE for p in d_prompts)
+        c.update({
+            "roles": fleet.role_counts(), "router_disagg": disagg,
+            "equal_disagg_phase": sum(x == y for x, y in zip(toks, ref)),
+            "first_differences": diffs,
+            "decode_prefill_tokens": end["prefill_tokens"]
+            - before["prefill_tokens"],
+            "tail_only_tokens": tail,
+            "page_ships": end["fleet_kv"]["page_ships"]
+            - before["fleet_kv"]["page_ships"],
+            "prefill_role": {
+                "decode_step_programs": pre_snap["decode_step_programs"],
+                "dispatches": pre_snap["dispatches"],
+                "graph_launches": pre.graph_launches()},
+            "ttft_ms_p50": pct(ttft, 0.5), "ttft_ms": ttft,
+            "pools_balanced": [page_balance(lp) for lp in (pre, dec)]})
+        ok = (ok and near_ties(diffs, TOL[FULL.dtype], FULL.dtype)
+              and disagg["handoffs"] == N_REQUESTS
+              and disagg["handoff_failures"] == 0
+              and c["decode_prefill_tokens"] == tail
+              and pre_snap["decode_step_programs"] == 0
+              and pre_snap["dispatches"] == 0
+              and not any(pre.graph_launches().values())
+              and all(c["pools_balanced"]))
+    finally:
+        if router is not None:
+            router.close()
+        else:
+            fleet.close()
+        for h, _ in roles.values():
+            h.close()
+    out["handoff"] = c
+    out["launches"] = launches
+    ok = ok and launches["flash_fwd"] > 0 and launches["paged_decode"] > 0
     out["ok"] = ok
     return out
 
@@ -4037,6 +4460,7 @@ def main(argv=None) -> int:
 
     kernels, steps = main_path_timing(device, timer, params, plens, serve,
                                       args.seed, worst, serve["launches"])
+    shared = {}  # what a later phase compares with an earlier one's
     for name, fn in (("serve_features",
                       lambda: phase_serve_features(device, args.seed,
                                                    params, timer)),
@@ -4048,7 +4472,10 @@ def main(argv=None) -> int:
                                                timer)),
                      ("disagg",
                       lambda: phase_disagg(device, args.seed, params,
-                                           timer))):
+                                           timer, shared)),
+                     ("fleet",
+                      lambda: phase_fleet(device, args.seed, params,
+                                          timer, shared))):
         t0 = time.perf_counter()
         res = fn()
         res["seconds"] = time.perf_counter() - t0
@@ -4124,14 +4551,17 @@ def main(argv=None) -> int:
     http = {name: record[name]["launches"] if name == "disagg"
             else record[name]["generate"]["launches"]
             for name in ("http_serve", "disagg")}
+    fleet_launches = record["fleet"]["launches"]
     k1["launches_by_path"] = {"serve": k1["launches"],
                               **sf["flash_fwd"],
                               "http": http["http_serve"]["flash_fwd"],
                               "disagg": http["disagg"]["flash_fwd"],
+                              "fleet": fleet_launches["flash_fwd"],
                               "train": train["launches"]["flash_fwd"]}
     k4["launches_by_path"] = {"serve": k4["launches"], **sf["paged_decode"],
                               "http": http["http_serve"]["paged_decode"],
-                              "disagg": http["disagg"]["paged_decode"]}
+                              "disagg": http["disagg"]["paged_decode"],
+                              "fleet": fleet_launches["paged_decode"]}
     k4["launches"] = sum(k4["launches_by_path"].values())
     for row in bwd_rows:
         row["launches_by_path"] = {"train": row["launches"]}

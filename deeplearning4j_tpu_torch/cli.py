@@ -16,16 +16,22 @@ Usage (CLI = `python -m deeplearning4j_tpu_torch.cli`):
     CLI eval    -m ckpts/ --data heldout.csv --json
     CLI checkpoint inspect ckpts/
     CLI serve   -m model.ckpt --transformer '{"vocab_size": 64}' --port 0
+    CLI fleet   -m model.ckpt --replicas 2 --device cpu \
+                --serve-arg=--transformer --serve-arg='{"vocab_size": 64}'
     CLI batch   --url http://127.0.0.1:PORT -i prompts.jsonl -o out.jsonl
 
 `-m` accepts a conf .json (fresh net), a single-file .ckpt, or a sharded
 checkpoint DIRECTORY for train/test/predict/eval. Checkpoints cross
 between this CLI and the JAX package's both ways.
 
-Device: `train`, `test`, `predict`, `eval` and `serve` take `--device
-cuda|cpu` (default cuda, the counterpart of pointing the JAX CLI at a
-platform). With `cuda` and no CUDA device the command prints "no CUDA
-device" and exits 2; it never carries on on the CPU. `checkpoint
+Device: `train`, `test`, `predict`, `eval`, `serve` and `fleet` take
+`--device cuda|cpu` (default cuda, the counterpart of pointing the JAX CLI
+at a platform). With `cuda` and no CUDA device the command prints "no
+CUDA device" and exits 2; it never carries on on the CPU. `fleet` runs
+its router on the host and passes `--device` to every replica it spawns
+(an operator's `--serve-arg=--device` still wins, as the later argparse
+occurrence); a replica that cannot reach its device exits before it
+announces and the spawn raises with its output tail. `checkpoint
 inspect` reads manifests only and needs no device; `batch` is an HTTP
 client.
 
@@ -38,9 +44,9 @@ config): every process given the same SPEC holds the same weights, but
 not the JAX CLI's (carry weights across with `weights.params_from_jax`).
 
 The parser takes every subcommand and flag of the JAX CLI, so an argv
-written for it parses. What is not ported yet (`fleet`, `watchdog`,
-`pipeline`; train's `--elastic`, `--metrics-port`, `--trace`,
-`--compile-cache`; serve's `--compile-cache` and `--warmup-plan PATH`)
+written for it parses. What is not ported yet (`watchdog`, `pipeline`;
+train's `--elastic`, `--metrics-port`, `--trace`, `--compile-cache`;
+serve's and fleet's `--compile-cache` and serve's `--warmup-plan PATH`)
 prints the ROADMAP item that brings it and exits 2 before doing
 anything.
 
@@ -61,9 +67,8 @@ import torch
 
 #: subcommands of the JAX CLI that this port has not taken yet
 NOT_PORTED = {
-    "fleet": "ROADMAP Queue 1 item 11 (fleet and router)",
     "watchdog": "ROADMAP Queue 1 item 14 (control plane)",
-    "pipeline": "ROADMAP Queue 1 item 11 (deploy/controller.py)",
+    "pipeline": "ROADMAP Queue 1 item 11b (deploy/controller.py)",
 }
 
 #: train flags of the JAX CLI that this port has not taken yet:
@@ -76,6 +81,12 @@ FLAGS_NOT_PORTED = {
     ("trace", "--trace"): "ROADMAP Queue 1 item 14 (telemetry/)",
     ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14 "
                                           "(compilecache/)",
+}
+
+#: fleet flags of the JAX CLI that this port has not taken yet
+FLEET_FLAGS_NOT_PORTED = {
+    ("compile_cache", "fleet --compile-cache"): "ROADMAP Queue 1 item "
+                                                "14c (compilecache/)",
 }
 
 #: serve flags of the JAX CLI that this port has not taken yet
@@ -772,6 +783,204 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _parse_roles(spec: str) -> dict:
+    """`prefill=1,decode=2` -> {"prefill": 1, "decode": 2}."""
+    out = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, n = part.partition("=")
+        name = name.strip()
+        if name not in ("prefill", "decode", "unified"):
+            raise ValueError(
+                f"--roles: unknown role {name!r} (expected "
+                "prefill/decode/unified)")
+        out[name] = int(n or 1)
+        if out[name] < 0:
+            raise ValueError(f"--roles: {name} count must be >= 0")
+    return out
+
+
+def _parse_models(spec: str) -> dict:
+    """`tiny=conf.json,big=ckpt/` -> {"tiny": "conf.json", ...}."""
+    out = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, path = part.partition("=")
+        if not name.strip() or not path.strip():
+            raise ValueError(
+                f"--models: need NAME=PATH, got {part!r}")
+        out[name.strip()] = path.strip()
+    return out
+
+
+def cmd_fleet(args) -> int:
+    """`fleet`: spawn N local replica server processes (and/or attach
+    running ones by URL) behind the router tier — health-based
+    eviction/rejoin, least-loaded routing with retries, load shedding,
+    rolling `POST /reload`, `POST /scale` (docs/FLEET.md). `--roles`
+    and/or `--models` replace the flat --replicas spawn with
+    per-(model, role) pools: each pool's replicas get the matching
+    `--role`/`--model-id` serve flags and autoscale independently.
+    Every spawned replica gets `--device` (before the operator's
+    `--serve-arg`s, which win)."""
+    from deeplearning4j_tpu_torch.serving.fleet import (Autoscaler, Fleet,
+                                                        ReplicaSpawner)
+    from deeplearning4j_tpu_torch.serving.router import (ReplicaClient,
+                                                         serve_fleet)
+
+    if _refused_flag(args, FLEET_FLAGS_NOT_PORTED,
+                     accepted={"compile_cache": ("off",)}):
+        return 2
+    try:
+        roles = _parse_roles(args.roles) if args.roles else {}
+        models = _parse_models(args.models) if args.models else {}
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    pooled = bool(roles or models)
+    if pooled and not models and not args.model:
+        print("fleet --roles needs -m MODEL (or --models)",
+              file=sys.stderr)
+        return 2
+    if not pooled and not args.attach \
+            and (not args.model or args.replicas < 1):
+        print("fleet needs -m MODEL with --replicas >= 1, --roles/"
+              "--models, and/or --attach URL", file=sys.stderr)
+        return 2
+    autoscaler = None
+    if args.autoscale and not pooled:
+        lo, _, hi = args.autoscale.partition(":")
+        autoscaler = Autoscaler(min_replicas=int(lo),
+                                max_replicas=int(hi or lo))
+    # the fleet's KV mode and device lead the spawned replicas' serve
+    # args so an explicit --serve-arg from the operator still wins
+    # (later argparse occurrence overrides)
+    lead = ["--fleet-kv", args.fleet_kv, "--device", args.device]
+    spawner = None
+    if not pooled and args.model \
+            and (args.replicas > 0 or autoscaler is not None):
+        spawner = ReplicaSpawner(args.model,
+                                 serve_args=lead + args.serve_arg)
+    tele = _Telemetry(args)
+    fleet = Fleet(spawner=spawner,
+                  heartbeat_interval=args.heartbeat_interval,
+                  heartbeat_timeout=args.heartbeat_timeout,
+                  shed_high_water=args.shed_high_water,
+                  batch_high_water=args.batch_high_water,
+                  request_timeout=args.request_timeout,
+                  retry_budget=args.retry_budget,
+                  stream_resume_attempts=args.stream_resume_attempts,
+                  breaker_threshold=args.breaker_threshold,
+                  breaker_reset_s=args.breaker_reset,
+                  autoscaler=autoscaler,
+                  state_dir=args.state_dir,
+                  initial_checkpoint=(args.model
+                                      if args.model
+                                      and not args.model.endswith(".json")
+                                      else None))
+    # a crash-restarted router re-adopted its journaled replicas in the
+    # Fleet constructor: only spawn the CAPACITY GAP, never a duplicate
+    # world next to the warm one
+    handoff_exit = bool(args.state_dir) and not args.smoke
+    handle = None
+    try:
+        attached = {r["url"] for r in
+                    fleet.snapshot()["replicas"].values()}
+        for url in args.attach:
+            if ReplicaClient(url).url not in attached:
+                fleet.attach(url)
+        if pooled:
+            # per-(model, role) pools: each gets its own spawner whose
+            # serve_args bake in the matching --role/--model-id, its
+            # own autoscaler bounds, and spawns only the gap the
+            # re-adopted warm world leaves (matched by announced
+            # identity — journal adoption works per pool too)
+            model_pools = models or {"default": args.model}
+            role_layout = roles or {"unified": args.replicas}
+            reps = fleet.snapshot()["replicas"]
+            for mname, mpath in model_pools.items():
+                for rname, want in role_layout.items():
+                    sargs = list(lead)
+                    if rname != "unified":
+                        sargs += ["--role", rname]
+                    if models:
+                        sargs += ["--model-id", mname]
+                    sargs += args.serve_arg
+                    pool_scaler = None
+                    if args.autoscale:
+                        lo, _, hi = args.autoscale.partition(":")
+                        pool_scaler = Autoscaler(
+                            min_replicas=int(lo),
+                            max_replicas=int(hi or lo))
+                    fleet.add_pool(
+                        model_id=mname, role=rname,
+                        spawner=ReplicaSpawner(mpath,
+                                               serve_args=sargs),
+                        autoscaler=pool_scaler)
+                    have = sum(
+                        1 for r in reps.values()
+                        if r["state"] != "evicted"
+                        and (r.get("role") or "unified") == rname
+                        and (r.get("model_id") or "default") == mname)
+                    if want > have:
+                        fleet.spawn_pool(mname, rname, want - have)
+        elif spawner is not None and args.replicas > 0:
+            # --replicas counts LOCAL processes: only spawned members
+            # (the adopted warm world) fill the quota — attached URLs
+            # are additive, exactly as on a fresh start
+            have = sum(1 for r in fleet.snapshot()["replicas"].values()
+                       if r["spawned"] and r["state"] != "evicted")
+            if args.replicas > have:
+                fleet.spawn(args.replicas - have)
+        handle = serve_fleet(fleet, host=args.host, port=args.port,
+                             fleet_kv=args.fleet_kv)
+        fleet.wait_ready(1, timeout=args.ready_timeout)
+    except BaseException:
+        if handle is not None:
+            handle.close(stop_replicas=not handoff_exit,
+                         handoff=handoff_exit)
+        else:
+            fleet.close(stop_replicas=not handoff_exit,
+                        handoff=handoff_exit)
+        tele.close()
+        raise
+    # snapshot() reads membership under the fleet lock — the monitor
+    # thread may be autoscale-spawning concurrently
+    print(json.dumps({"router": handle.url,
+                      "replicas": fleet.state_counts(),
+                      "roles": fleet.role_counts(),
+                      "incarnation": fleet.incarnation,
+                      "adopted": sum(1 for e in fleet.adoption_events
+                                     if e["kind"] in ("adopted",
+                                                      "attached")),
+                      "endpoints": [rep["url"] for rep in
+                                    fleet.snapshot()["replicas"]
+                                    .values()],
+                      "metrics": handle.url + "/metrics",
+                      **tele.announce()}), flush=True)
+    if args.smoke:
+        handle.close(stop_replicas=True)
+        tele.close()
+        return 0
+    try:
+        handle.http.thread.join()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        # with a state dir, an exiting router HANDS OFF its warm
+        # replicas for the next incarnation (SIGKILL would anyway —
+        # this makes a graceful stop match); without one, stopping the
+        # router is stopping the fleet
+        handle.close(stop_replicas=not handoff_exit,
+                     handoff=handoff_exit)
+        tele.close()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
@@ -1146,7 +1355,11 @@ def build_parser() -> argparse.ArgumentParser:
                          help="start, print the address, shut down "
                               "(stops spawned replicas)")
     telemetry_flags(p_fleet)
-    p_fleet.set_defaults(fn=_not_ported("fleet"))
+    p_fleet.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                         help="device of every spawned replica (default: "
+                              "the CUDA device; a replica without one "
+                              "exits and its spawn fails)")
+    p_fleet.set_defaults(fn=cmd_fleet)
 
     p_watch = sub.add_parser(
         "watchdog",

@@ -38,7 +38,11 @@ first dispatch). On the CPU the step runs eagerly and
 capture raises; nothing gives way to the eager step on the card. A
 capture runs no kernel, so the wrappers' `launches` counters leave it
 out; `graph_launches()` counts what the replays launched (replays x the
-launches the capturing thread recorded into each graph).
+launches the capturing thread recorded into each graph). Entering a
+capture synchronizes the whole device and empties the allocator's cache,
+which would break a capture another loop of the same process has
+under way (a fleet's replicas on threads of one process), so captures
+take a process-wide lock (`_CAPTURE_LOCK`) one at a time.
 
 **Prefix cache** (`prefix_cache=True`, the default): a radix trie over
 page-aligned token chunks (`prefix_cache.PrefixIndex`) sits in front of
@@ -177,6 +181,10 @@ _TIER_ITEM_MS = {TIER_INTERACTIVE: 50.0, TIER_BATCH: 250.0}
 #: launches the calling thread recorded under capture
 _CAPTURED_LAUNCHES = {"paged_decode": paged.captured_launches,
                       "flash_fwd": flash.captured_launches}
+#: one graph capture at a time in this process: `torch.cuda.graph`
+#: synchronizes the device and frees cached blocks on entry, which
+#: invalidates a capture under way on another loop's scheduler thread
+_CAPTURE_LOCK = threading.Lock()
 
 
 class _Counts(dict):
@@ -266,6 +274,9 @@ class GenerationStream:
         `(token_index_base + n, token)` for the n-th emitted token."""
         for n, tok in enumerate(self.tokens(timeout=timeout)):
             yield self.token_index_base + n, tok
+
+    def __iter__(self) -> Iterator[int]:
+        return self.tokens()
 
     @property
     def done(self) -> bool:
@@ -1790,17 +1801,18 @@ class DecodeLoop:
                       else (self._verify_eager, self._idle_verify))
         dev = self.device
         t0 = time.perf_counter()
-        idle()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = {n: f() for n, f in _CAPTURED_LAUNCHES.items()}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool,
-                              capture_error_mode="thread_local"):
-            body()
+        with _CAPTURE_LOCK:
+            idle()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                body()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            before = {n: f() for n, f in _CAPTURED_LAUNCHES.items()}
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  capture_error_mode="thread_local"):
+                body()
         recorded = {n: f() - before[n] for n, f in _CAPTURED_LAUNCHES.items()}
         self._graph_pool = graph.pool()
         with self._cond:  # snapshot() iterates the graphs

@@ -138,6 +138,12 @@ class ModelDrafter:
         fixed slot count)."""
         return len(self._shapes)
 
+    def load_params(self, params) -> None:
+        """Swap the draft weights (same single-assignment contract as the
+        target's hot reload; shapes validated by the caller via
+        checkpoint.restore.validate_like)."""
+        self.params = params_to_device(params, self.device)
+
 
 def build_drafter(drafter: str, *, k: int, cfg, draft_params=None,
                   draft_cfg=None, draft_window: int = 32, ngram: int = 3,

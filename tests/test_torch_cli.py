@@ -48,7 +48,7 @@ from deeplearning4j_tpu_torch.scaleout.checkpoint import load_checkpoint
 
 REPO = Path(__file__).resolve().parents[1]
 PARAM_TOL = 1e-5
-DEVICE_COMMANDS = ("train", "test", "predict", "eval", "serve")
+DEVICE_COMMANDS = ("train", "test", "predict", "eval", "serve", "fleet")
 
 
 def run(pkg, *argv):
@@ -352,7 +352,8 @@ def test_a_checkpoint_of_one_cli_tests_in_the_other(ws, direction, kind):
 
 # --------------------------------------------------- not ported, device
 UNPORTED = {
-    "fleet": (["fleet", "-m", "m.ckpt"], "item 11"),
+    "fleet": (["fleet", "-m", "m.ckpt", "--compile-cache", "auto"],
+              "item 14c"),
     "watchdog": (["watchdog", "--", "train"], "item 14"),
     "pipeline": (["pipeline", "--checkpoint-dir", "ck"], "item 11"),
     "--elastic": (["train", "-i", "d.csv", "-m", "c.json", "-o", "m.ckpt",

@@ -219,6 +219,23 @@ class TestGreedyTokens:
         # every token but the prefill's first came from a decode step
         assert snap["prefill_tokens"] == sum(len(p) for p in prompts)
 
+    def test_iterating_a_stream_gives_jax_tokens(self, params):
+        """`for tok in stream` (GenerationStream.__iter__) yields the
+        tokens the JAX package's stream yields when iterated."""
+        jp, tp = params
+        prompt = _prompts(6, (9,))[0]
+        ref_loop = JaxLoop(jp, JAX_CFG, slots=2, page_size=PS,
+                           prefix_cache=False, kernel="gather", start=False)
+        ref = ref_loop.submit(prompt, 11)
+        ref_loop.run_until_idle()
+        loop = DecodeLoop(tp, CFG, slots=2, page_size=PS,
+                          prefix_cache=False, device="cpu", start=False)
+        stream = loop.submit(prompt, 11)
+        loop.run_until_idle()
+        got = [tok for tok in stream]
+        assert got == [tok for tok in ref] == stream.result(0)
+        assert len(got) == 11
+
     def test_eos_and_threaded_streams(self, params):
         _, tp = params
         prompts = _prompts(5, (6, 11, 3))
@@ -719,3 +736,33 @@ def test_graph_step_matches_eager_step_on_card(card, horizon, spec):
             assert loop.graph_launches()["paged_decode"] == sum(
                 g.replays * per[n] for n, g in loop._graphs.items()) > 0
     assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_loops_of_one_process_capture_one_at_a_time_on_card(card):
+    """Two running loops of one process (a fleet's replicas on threads)
+    capture their step graphs while both take traffic: the captures
+    serialize on the module's lock (entering one synchronizes the
+    device), both loops stay up, and each gives a lone loop's tokens."""
+    cfg = tf.TransformerConfig(vocab_size=53, d_model=128, n_heads=2,
+                               n_layers=2, d_ff=64, max_len=64)
+    tp = tf.init_transformer_params(0, cfg, device=card)
+    prompts = _prompts(11, (5, 13, 8, 20, 7, 16))
+    ref = DecodeLoop(tp, cfg, slots=8, page_size=PS, device=card,
+                     start=False)
+    want = ref.submit_many(prompts, 9)  # one admission group, as below
+    _drain(ref)
+    want = [s.result(0) for s in want]
+    loops = [DecodeLoop(tp, cfg, slots=8, page_size=PS, device=card)
+             for _ in range(2)]
+    try:
+        streams = [lp.submit_many(prompts, 9) for lp in loops]
+        got = [[s.result(120) for s in row] for row in streams]
+        for lp, row in zip(loops, got):
+            assert lp.alive and lp.decode_step_programs() == 1
+            assert row == want
+    finally:
+        for lp in loops:
+            lp.close()
+    assert decode_loop._CAPTURE_LOCK.acquire(blocking=False)
+    decode_loop._CAPTURE_LOCK.release()

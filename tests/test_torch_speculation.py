@@ -438,3 +438,174 @@ class TestSpeculativeLoop:
         assert stream.speculation is True
         with pytest.raises(ValueError, match="max_tokens needs 3"):
             loop.submit_many([[1, 2]] * 3, [4, 4])
+
+
+# --------------------------------------------------------- HTTP surface
+def _http_post(url, body):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url, json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def _http_get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return r.read().decode()
+
+
+def _mlp():
+    from deeplearning4j_tpu_torch.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder()
+            .lr(0.1).n_in(4).activation_function("tanh")
+            .optimization_algo("iteration_gradient_descent")
+            .num_iterations(1).use_adagrad(False)
+            .list(2).hidden_layer_sizes([8])
+            .override(1, layer="output", loss_function="mcxent",
+                      activation_function="softmax", n_out=3)
+            .pretrain(False).build())
+    return MultiLayerNetwork(conf, device="cpu")
+
+
+class TestSpeculativeHTTP:
+    """The JAX package's `TestSpeculativeHTTP` on a port server
+    (`serve_network(..., speculation=4, drafter="model")`): the opt-out,
+    the `dl4j_spec_*` series and `/stats`, the streamed `token_index`,
+    and the draft canary reload (200 with the checkpoint's step and the
+    serving identity untouched, the same tokens after the swap, 400 on a
+    shape mismatch and without a model drafter)."""
+
+    @pytest.fixture()
+    def served(self, params, draft_params):
+        from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                     serve_network)
+
+        _, tp = params
+        _, tdp = draft_params
+        gen = InferenceEngine.for_transformer(tp, CFG, device="cpu")
+        handle = serve_network(
+            _mlp(), generate_engine=gen, n_replicas=1, max_delay_ms=1.0,
+            slots=4, page_size=8, speculation=4, drafter="model",
+            draft_params=tdp, draft_cfg=DRAFT_CFG, draft_window=16)
+        try:
+            yield handle, gen
+        finally:
+            handle.close()
+
+    def test_opt_out_and_metrics_scrape(self, served):
+        import json
+
+        handle, gen = served
+        prompt = [1, 2, 3, 4, 5, 6, 7, 8]
+        r1 = _http_post(f"{handle.url}/generate",
+                        {"prompt": prompt, "max_tokens": 20})
+        r2 = _http_post(f"{handle.url}/generate",
+                        {"prompt": prompt, "max_tokens": 20,
+                         "speculation": False})
+        assert r1["tokens"] == r2["tokens"]
+        metrics = _http_get(f"{handle.url}/metrics")
+        for name in ("dl4j_spec_proposed", "dl4j_spec_accepted",
+                     "dl4j_spec_rounds", "dl4j_spec_acceptance_rate"):
+            assert name in metrics
+        rate = [ln for ln in metrics.splitlines()
+                if ln.startswith("dl4j_spec_acceptance_rate{")]
+        assert rate and 0.0 <= float(rate[0].split()[-1]) <= 1.0
+        stats = json.loads(_http_get(f"{handle.url}/stats"))
+        spec = stats["generate"]["decode"]["speculation"]
+        assert spec["enabled"] and spec["proposed"] > 0
+        assert gen.decode_loop.decode_step_programs() <= 2
+
+    def test_streaming_token_index_unchanged(self, served):
+        import json
+        import urllib.request
+
+        handle, _ = served
+        body = json.dumps({"prompt": [1, 2, 3, 4], "max_tokens": 8,
+                           "stream": True}).encode()
+        req = urllib.request.Request(f"{handle.url}/generate", body,
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            events = [json.loads(ln) for ln in r if ln.strip()]
+        toks = [e for e in events if "token" in e]
+        assert [e["token_index"] for e in toks] == list(range(8))
+        assert events[-1].get("done") is True
+
+    def test_draft_canary_reload(self, served, draft_params, tmp_path):
+        import json
+
+        from deeplearning4j_tpu_torch.checkpoint.format import \
+            write_checkpoint
+
+        handle, gen = served
+        prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+        before = _http_post(f"{handle.url}/generate",
+                            {"prompt": prompt, "max_tokens": 16})
+        new_draft = tf.init_transformer_params(11, DRAFT_CFG, device="cpu")
+        ck = str(tmp_path / "draft")
+        write_checkpoint(ck, 5, {"params": new_draft})
+        out = _http_post(f"{handle.url}/reload",
+                         {"path": ck, "target": "draft"})
+        assert out["reloaded"] and out["target"] == "draft"
+        assert out["step"] == 5
+        assert out["checkpoint"] is None  # serving identity untouched
+        # the drafter holds the checkpoint's weights, assigned once
+        drafter = gen.decode_loop._drafter
+        assert torch.equal(drafter.params["embed"], new_draft["embed"])
+        assert torch.equal(drafter.params["blocks"][0]["Wq"],
+                           new_draft["blocks"][0]["Wq"])
+        after = _http_post(f"{handle.url}/generate",
+                           {"prompt": prompt, "max_tokens": 16})
+        assert after["tokens"] == before["tokens"]
+        assert gen.draft_checkpoint["step"] == 5
+        stats = json.loads(_http_get(f"{handle.url}/stats"))
+        assert stats["last_reload"]["target"] == "draft"
+
+    def test_draft_reload_shape_mismatch_is_400(self, served, tmp_path):
+        import urllib.error
+
+        from deeplearning4j_tpu_torch.checkpoint.format import \
+            write_checkpoint
+
+        handle, gen = served
+        wrong = DRAFT_CFG._replace(d_model=24)
+        ck = str(tmp_path / "wrong")
+        write_checkpoint(ck, 1, {"params": tf.init_transformer_params(
+            2, wrong, device="cpu")})
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _http_post(f"{handle.url}/reload",
+                       {"path": ck, "target": "draft"})
+        assert e.value.code == 400
+        assert gen.draft_checkpoint is None  # nothing was installed
+
+    def test_reload_without_model_drafter_is_400(self, params, tmp_path):
+        import json
+        import urllib.error
+
+        from deeplearning4j_tpu_torch.checkpoint.format import \
+            write_checkpoint
+        from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                     serve_network)
+
+        _, tp = params
+        gen = InferenceEngine.for_transformer(tp, CFG, device="cpu")
+        handle = serve_network(
+            _mlp(), generate_engine=gen, n_replicas=1, max_delay_ms=1.0,
+            slots=2, page_size=8, speculation=4)
+        try:
+            ck = str(tmp_path / "draft")
+            write_checkpoint(ck, 1, {"params": tf.init_transformer_params(
+                11, DRAFT_CFG, device="cpu")})
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _http_post(f"{handle.url}/reload",
+                           {"path": ck, "target": "draft"})
+            assert e.value.code == 400
+            body = json.loads(e.value.read())
+            assert "drafter" in body["error"]
+        finally:
+            handle.close()

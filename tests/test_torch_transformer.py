@@ -206,6 +206,12 @@ class TestImportIsolation:
                 "import deeplearning4j_tpu_torch.serving, "
                 "deeplearning4j_tpu_torch.serving.server, "
                 "deeplearning4j_tpu_torch.serving.fleetkv, "
+                "deeplearning4j_tpu_torch.serving.fleet, "
+                "deeplearning4j_tpu_torch.serving.router, "
+                "deeplearning4j_tpu_torch.scaleout.api, "
+                "deeplearning4j_tpu_torch.scaleout.rpc, "
+                "deeplearning4j_tpu_torch.scaleout.statetracker, "
+                "deeplearning4j_tpu_torch.utils.procs, "
                 "deeplearning4j_tpu_torch.telemetry, "
                 "deeplearning4j_tpu_torch.telemetry.device, "
                 "deeplearning4j_tpu_torch.testing.chaos, "
