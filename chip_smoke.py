@@ -285,6 +285,36 @@ prints no result):
                   with K1-K3 counted; one subprocess `python3 -m
                   deeplearning4j_tpu_torch.cli test` gives the in-process
                   metrics. CLI wall time and time to first step.
+17b. pipeline    — the train -> serve conveyor (deploy/controller.py,
+                  cli pipeline) over the attention stack, bf16: what
+                  telemetry costs a step (host syncs equal with it on
+                  and off, params bit-identical); (a) `cli train` (batch
+                  1024, 12 steps, an autosave every 4, --metrics-port 0,
+                  --trace) commits steps 4, 8, 12, then a copy of step
+                  12 with its output weights negated (13) and BASELINE
+                  config 1's trained MLP (14) are committed; a
+                  DeploymentController on the card (eval gate on 1,024
+                  held-out rows, f1 >= 0.5, a /predict probe, a state
+                  dir, a status port) drives a Fleet of two
+                  serve_network replicas on threads: 14 fails its
+                  canary, 13 the gate, 12 is promoted. Gates: the
+                  verdicts and QUARANTINED markers, every replica's
+                  /stats and /readyz on step 12, /predict within the
+                  bf16 tolerance of step 12 restored on the card, the
+                  gate's classes against a float32 CPU gate (each
+                  differing row a near-tie), dl4j_pipeline_* on the
+                  status port, the trainer's /metrics (steps and
+                  commits) and trace, allocated memory back to its
+                  value before each gate and, after every cycle, before
+                  the first, a journal left in CANARY by a dead owner
+                  re-driven to the same verdict; (b) `cli pipeline
+                  --spawn-fleet` as a subprocess with two `cli serve
+                  --device cuda` replicas and a state dir: exit 0, the
+                  JAX CLI's announce keys, step 12 promoted, and once
+                  the handed-off replicas are stopped no process of
+                  their groups left. K1-K3 counted as the "pipeline"
+                  path; commit-to-serving seconds, eval and promote
+                  seconds, checkpoint write seconds.
 18. lstm         — models/lstm.py: card vs CPU in float32 (d 32, T 16,
                   B 4; activate, loss, gradients of R, Wd, bd, 3 SGD
                   steps, chunked run_stream; outputs within 1e-5 (the
@@ -296,7 +326,8 @@ prints no result):
                   sorted beams; ms a step by CUDA events, tokens/s,
                   kernels a step and busy share, ms a beam tick.
 The phases 16-18 write under build/chip_smoke_cli/ and remove it; phase
-5f writes under build/chip_smoke_fleet/ and removes it.
+5f writes under build/chip_smoke_fleet/ and phase 17b under
+build/chip_smoke_pipeline/, each removing it.
 
 Then, at each path's shapes: each kernel's time beside its plain
 version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3;
@@ -306,7 +337,7 @@ K3 also at the attention stack's shape (B*H 1024, T 28, hd 128, not
 causal), and K1 at the model drafter's shape. The kernels' launches
 are counted per path, a captured graph's replays included (serve,
 serve_features, spec, draft, http, disagg, fleet, train, multilayer,
-solver, guardian, cli).
+solver, guardian, cli, pipeline).
 The last lines are the card as nvidia-smi gives it, the kernels' JSON
 line (with each kernel's design), and
 {"ok": true, "device": {...}}.
@@ -4142,6 +4173,496 @@ def phase_cli(device, seed):
                    and attn_ok and sub_ok)}
 
 
+# ------------------------------------------------------------- pipeline
+PIPE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_pipeline"
+#: training rows and held-out rows of one synthetic_mnist draw
+PIPE_ROWS, PIPE_HELD = 4096, 1024
+#: 3 epochs at batch 1024 = 12 steps; an autosave every 4: commits 4, 8, 12
+PIPE_EPOCHS, PIPE_EVERY = 3, 4
+#: the eval gate's absolute f1 threshold
+PIPE_THRESHOLD = 0.5
+#: the announce line of `cli pipeline`, the JAX CLI's keys
+PIPE_ANNOUNCE_KEYS = {"pipeline", "checkpoint_dir", "fleet", "status",
+                      "incarnation"}
+
+
+def pipeline_data(seed):
+    """train.csv (4,096 rows) and held.csv (1,024 rows) with an integer
+    label column, cut from one synthetic_mnist draw (one set of class
+    templates); returns the paths and the arrays."""
+    x, y = synthetic_mnist(PIPE_ROWS + PIPE_HELD, seed=seed)
+    parts = {"train": (x[:PIPE_ROWS], y[:PIPE_ROWS]),
+             "held": (x[PIPE_ROWS:], y[PIPE_ROWS:])}
+    paths = {}
+    for name, (xs, ys) in parts.items():
+        paths[name] = PIPE_DIR / f"{name}.csv"
+        np.savetxt(paths[name], np.hstack([xs, ys.argmax(1)[:, None]]),
+                   delimiter=",", fmt="%.9g")
+    return paths, parts
+
+
+def metric_samples(text, prefix, label=None) -> dict:
+    """{sample name: value} of a /metrics page's samples whose name
+    starts with `prefix` (and whose labels hold `label`), buckets left
+    out."""
+    out = {}
+    for ln in text.splitlines():
+        if (ln.startswith(prefix) and "_bucket{" not in ln
+                and (label is None or label in ln)):
+            out[ln.split("{")[0].split(" ")[0]] = float(ln.split()[-1])
+    return out
+
+
+def output_logits(net, x) -> torch.Tensor:
+    """The output layer's pre-activation (the logits under its softmax),
+    float32 on the host."""
+    x = net._tensor(x)
+    n = len(net.layers) - 1
+    with torch.no_grad():
+        h = net._layer_input(n, net.feed_forward_fn(net.param_table,
+                                                    x)[-2])
+        z = net.layers[-1].pre_output(net.param_table[str(n)], h)
+    return z.float().cpu()
+
+
+def gate_rows(card_out, ref_logits) -> list:
+    """Every held-out row whose class differs between the card's gate
+    and the reference, as near_tie_record gives it: the reference's
+    top logit and top-2 gap, and how far below the top each pick lies."""
+    card = card_out.float().cpu().argmax(1)
+    ref = ref_logits.argmax(1)
+    return [near_tie_record(int(r), 0, ref_logits[r],
+                            [int(card[r]), int(ref[r])])
+            for r in torch.nonzero(card != ref).flatten().tolist()]
+
+
+def telemetry_cost(device, x, y) -> dict:
+    """What telemetry costs a training step: the attention stack (bf16,
+    batch 1024) from the same weights, one net stepping with telemetry
+    on and host spans traced, the other with telemetry killed. A step's
+    host syncs (count_syncs) must be equal and the params bit-identical
+    after the same 7 steps; ms a step each (median of 5, by the host
+    clock around a synchronised step, not gated)."""
+    from deeplearning4j_tpu_torch import telemetry
+    from deeplearning4j_tpu_torch.telemetry import trace as ttrace
+
+    xb = torch.as_tensor(x, device=device)
+    yb = torch.as_tensor(y, device=device)
+    nets = {mode: MultiLayerNetwork(attention_conf("bfloat16"),
+                                    device=device) for mode in ("on", "off")}
+    syncs, ms = {}, {}
+    for mode, net in nets.items():
+        net.fit(xb, yb)  # warm: the updater state made
+        telemetry.set_enabled(mode == "on")
+        if mode == "on":
+            ttrace.start_tracing()
+        try:
+            torch.cuda.synchronize()
+            syncs[mode] = count_syncs(lambda: net.fit(xb, yb))
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net.fit(xb, yb)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[mode] = float(np.median(times))
+        finally:
+            telemetry.set_enabled(True)
+            ttrace.stop_tracing()
+    diff = bitwise_diff(nets["on"], nets["off"])
+    return {"syncs_a_step": syncs, "step_ms": ms, "bitwise_diff": diff,
+            "ok": syncs["on"] == syncs["off"] and not diff}
+
+
+def live_group_members(pgid: int) -> list:
+    """Pids of the live (not zombie) processes in process group `pgid`,
+    read from /proc (an adopted replica is not this process's child, so
+    nothing here reaps it)."""
+    members = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat", "rb") as f:
+                raw = f.read().decode("ascii", errors="replace")
+        except OSError:
+            continue
+        rest = raw[raw.rindex(")") + 2:].split()
+        if int(rest[2]) == pgid and rest[0] not in ("Z", "X", "x"):
+            members.append(int(name))
+    return members
+
+
+def phase_pipeline(device, seed):
+    """The train -> serve conveyor (deploy/controller.py, cli pipeline)
+    over the attention stack at full width, bf16 products.
+
+    (a) In process: `cli train` (batch 1024, 3 epochs = 12 steps, an
+        autosave every 4 steps, --metrics-port 0, --trace) commits steps
+        4, 8 and 12; then step 13 (step 12 with its output layer's
+        weights negated) and step 14 (BASELINE config 1's MLP, trained
+        one epoch) are committed into the same root. A
+        DeploymentController (device cuda, eval gate on 1,024 held-out
+        rows at f1 >= 0.5, a /predict probe of 4 rows, a state dir, a
+        status port) drives a Fleet of two serve_network replicas of the
+        stack on threads of this process: step 14 passes the gate and
+        fails its canary (another architecture), step 13 fails the
+        gate, step 12 is promoted, then nothing is left. K1-K3 counted
+        from `cli train` to the last cycle, before any reference forward
+        (the "pipeline" path). Then: every replica's /stats and /readyz
+        name step 12, their /predict within the bf16 tolerance of step
+        12 restored on the card, the gate's classes against a float32
+        CPU gate (every differing row a near-tie), the status port's
+        dl4j_pipeline_* counters, the trainer's /metrics (steps, commits)
+        and trace, each gate's allocated memory back to its value
+        before it and the process's after every cycle back to its value
+        before the first gate, telemetry's cost a step (syncs and
+        params), and the crash drill: a journal left in CANARY by a dead
+        owner, a second incarnation promotes the same step.
+    (b) `python -m deeplearning4j_tpu_torch.cli pipeline --spawn-fleet`
+        with two `cli serve --device cuda` replicas and a state dir:
+        exit 0, the JAX CLI's announce keys, step 12 promoted (the
+        journals of the controller and the fleet; each ready replica's
+        /stats), then the replicas it handed off are stopped and no
+        process of their groups is left."""
+    from deeplearning4j_tpu_torch import cli as port_cli
+    from deeplearning4j_tpu_torch import telemetry
+    from deeplearning4j_tpu_torch.checkpoint import (ShardedModelSaver,
+                                                     list_steps)
+    from deeplearning4j_tpu_torch.checkpoint import format as ckfmt
+    from deeplearning4j_tpu_torch.checkpoint.restore import restore_network
+    from deeplearning4j_tpu_torch.deploy import (CANARY,
+                                                 DeploymentController)
+    from deeplearning4j_tpu_torch.eval import holdout
+    from deeplearning4j_tpu_torch.scaleout.checkpoint import \
+        DefaultModelSaver
+    from deeplearning4j_tpu_torch.serving import Fleet, serve_network
+    from deeplearning4j_tpu_torch.telemetry import trace as ttrace
+    from deeplearning4j_tpu_torch.utils import procs
+
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    PIPE_DIR.mkdir(parents=True)
+    out, ok = {"card": nvidia_smi()}, True
+    paths, parts = pipeline_data(seed)
+    xh, yh = parts["held"]
+    root = PIPE_DIR / "ck"
+    want = {"path": os.path.abspath(root), "step": None}
+    reg = telemetry.get_registry()
+    dev = torch.device(device).type
+
+    out["telemetry_cost"] = telemetry_cost(device, xh, yh)
+    ok = ok and out["telemetry_cost"]["ok"]
+
+    # ------------------------------------------------ (a) the trainer
+    conf_path = PIPE_DIR / "attention.json"
+    conf_path.write_text(attention_conf("bfloat16").to_json())
+    batch = ML_TRAIN["attention"][0]
+    n_steps = PIPE_EPOCHS * PIPE_ROWS // batch
+    trace_path = PIPE_DIR / "train_trace.json"
+    scraped = []
+    close = port_cli._Telemetry.close
+
+    def scrape_then_close(tele):
+        # the trainer's own endpoint, read just before it shuts down
+        if tele.metrics is not None:
+            scraped.append(http_get(tele.metrics.url + "/metrics")[1]
+                           .decode())
+        return close(tele)
+
+    counted = ("dl4j_train_steps", "dl4j_ckpt_saves")
+    before = {n: reg.counter(n).value for n in counted}
+    writes = reg.histogram("dl4j_ckpt_write_seconds")
+    writes0 = (writes.count, writes.sum)
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    port_cli._Telemetry.close = scrape_then_close
+    try:
+        rc, text, train_s = run_cli(
+            ["train", "-i", paths["train"], "-m", conf_path, "--device", dev,
+             "--batch-size", batch, "--epochs", PIPE_EPOCHS, "-o",
+             PIPE_DIR / "final.ckpt", "--checkpoint-dir", root,
+             "--checkpoint-every", PIPE_EVERY, "--metrics-port", 0,
+             "--trace", trace_path])
+    finally:
+        port_cli._Telemetry.close = close
+        ttrace.stop_tracing()
+    lines = [json.loads(s) for s in text.strip().splitlines()] \
+        if rc == 0 else []
+    committed = list_steps(str(root))
+    series = metric_samples(scraped[0], "dl4j_") if scraped else {}
+    with open(trace_path) as f:
+        span_names = {e["name"] for e in json.load(f)["traceEvents"]}
+    trainer = {
+        "rc": rc, "wall_s": train_s, "steps": n_steps,
+        "announce": lines[0] if lines else None,
+        "summary": lines[-1] if lines else None,
+        "committed": committed,
+        "metrics_steps": series.get("dl4j_train_steps_total", 0.0)
+        - before["dl4j_train_steps"],
+        "metrics_commits": series.get("dl4j_ckpt_saves_total", 0.0)
+        - before["dl4j_ckpt_saves"],
+        "ckpt_write_s": {"count": writes.count - writes0[0],
+                         "mean": (writes.sum - writes0[1])
+                         / max(1, writes.count - writes0[0])},
+        "trace_spans": sorted(span_names & {"train_step", "ckpt_snapshot",
+                                            "ckpt_write"})}
+    train_ok = (rc == 0 and "metrics" in trainer["announce"]
+                and trainer["summary"]["trace"] == str(trace_path)
+                and committed == list(range(PIPE_EVERY, n_steps + 1,
+                                            PIPE_EVERY))
+                and trainer["metrics_steps"] == n_steps
+                and trainer["metrics_commits"] == len(committed)
+                and len(trainer["trace_spans"]) == 3)
+    out["trainer"] = trainer
+    ok = ok and train_ok
+    good = committed[-1]
+    want["step"] = good
+    with open(root / ckfmt.step_dir_name(good) / ckfmt.MARKER) as f:
+        committed_at = json.load(f)["committed_at"]
+
+    # the two poisons, committed after the last good step
+    poisoned, _ = restore_network(str(root), good, device=device)
+    with torch.no_grad():
+        poisoned.param_table["1"]["W"].neg_()
+    mlp = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    mlp.fit(ListDataSetIterator(DataSet(*parts["train"]), batch))
+    with ShardedModelSaver(str(root), keep=10) as saver:
+        saver.save(poisoned, step=good + 1)
+        saver.save(mlp, step=good + 2)
+    del poisoned, mlp
+
+    # ------------------------------------------ (a) fleet + controller
+    boot = PIPE_DIR / "boot"
+    with ShardedModelSaver(str(boot)) as saver:
+        saver.save(MultiLayerNetwork(attention_conf("bfloat16"),
+                                     device=device), step=0)
+    handles = [serve_network(MultiLayerNetwork(attention_conf("bfloat16"),
+                                               device=device),
+                             max_delay_ms=2.0, warmup_shape=(784,),
+                             checkpoint={"path": str(boot), "step": 0})
+               for _ in range(2)]
+    # a replica's engine starts on its network's own tensors, and its
+    # first reload gives it copies (the network lives on in the forward's
+    # closure): reload each once, so every later reload swaps like for
+    # like and only the controller's gates can move allocated memory
+    for h in handles:
+        h.load_checkpoint(str(boot), step=0)
+    fleet = Fleet(initial_checkpoint=str(boot), **FLEET_MONITOR)
+    gates, cycles = [], []
+    evaluate = holdout.evaluate_checkpoint
+
+    def measured(*args, **kwargs):
+        m0 = torch.cuda.memory_allocated(device)
+        try:
+            return evaluate(*args, **kwargs)
+        finally:
+            gates.append({"before": m0,
+                          "after": torch.cuda.memory_allocated(device)})
+
+    ctrl = drill = None
+    a = {}
+    try:
+        for h in handles:
+            fleet.attach(h.url)
+        fleet.wait_ready(2, timeout=120)
+        ctrl = DeploymentController(
+            str(root), fleet=fleet, eval_data=str(paths["held"]),
+            eval_threshold=PIPE_THRESHOLD, poll_interval=0.01,
+            probe={"inputs": xh[:4].tolist()},
+            state_dir=str(PIPE_DIR / "state"), name="smoke",
+            status_port=0, device=device)
+        holdout.evaluate_checkpoint = measured
+        mem0 = torch.cuda.memory_allocated(device)
+        serving_s = None
+        for _ in range(4):
+            t0 = time.perf_counter()
+            res = ctrl.run_once()
+            cycles.append({**res, "seconds": time.perf_counter() - t0,
+                           "memory_allocated":
+                               torch.cuda.memory_allocated(device)})
+            if res.get("promoted"):
+                if all(json.loads(http_get(h.url + "/readyz")[1])
+                       .get("checkpoint") == want for h in handles):
+                    serving_s = time.time() - committed_at
+        holdout.evaluate_checkpoint = evaluate
+        torch.cuda.synchronize()
+        launches = flash_counts()  # before any reference forward
+        outcome = [{k: c.get(k) for k in ("action", "step", "promoted",
+                                          "rolled_back")} for c in cycles]
+        a["cycles"] = cycles
+        a["commit_to_serving_s"] = serving_s
+        a["gates"] = gates
+        a["memory_allocated_before_first_gate"] = mem0
+        cycles_ok = outcome == [
+            {"action": "promote", "step": good + 2, "promoted": False,
+             "rolled_back": True},
+            {"action": "eval", "step": good + 1, "promoted": False,
+             "rolled_back": None},
+            {"action": "promote", "step": good, "promoted": True,
+             "rolled_back": None},
+            {"action": "idle", "step": None, "promoted": None,
+             "rolled_back": None}]
+        reasons = {k: v.split(":")[0] for k, v in ctrl.quarantined.items()}
+        markers = [os.path.exists(root / ckfmt.step_dir_name(s)
+                                  / "QUARANTINED")
+                   for s in (good + 1, good + 2)]
+        a.update({"champion": ctrl.champion, "quarantined": reasons,
+                  "markers": markers})
+        verdict_ok = (ctrl.champion["step"] == good and all(markers)
+                      and reasons == {str(good + 1): "eval_gate",
+                                      str(good + 2): "canary"})
+        memory_ok = (len(gates) == 3
+                     and all(g["after"] == g["before"] for g in gates)
+                     and all(c["memory_allocated"] == mem0
+                             for c in cycles))
+        status = metric_samples(
+            http_get(ctrl.status_address + "/metrics")[1].decode(),
+            "dl4j_pipeline_", 'pipeline="smoke"')
+        a["status_metrics"] = status
+        a["healthz"] = json.loads(http_get(ctrl.status_address
+                                           + "/healthz")[1])
+        counters_ok = (status.get("dl4j_pipeline_promotions_total") == 1
+                       and status.get("dl4j_pipeline_rollbacks_total") == 1
+                       and status.get("dl4j_pipeline_quarantines_total")
+                       == 2 and a["healthz"]["ok"])
+        stats_ok = all(h.stats()["checkpoint"] == want for h in handles)
+
+        # the replicas against step 12 restored on the card
+        champ, _ = restore_network(str(root), good, device=device)
+        rows = xh[:64]
+        ref = champ.output(rows).float().cpu()
+        errs = [max_err(torch.tensor(http_post(
+                    h.url + "/predict", {"inputs": rows.tolist()})
+                    ["outputs"]), ref) for h in handles]
+        a["predict_max_abs_err"] = errs
+        predict_ok = max(errs) <= TOL[torch.bfloat16]
+
+        # the card's gate against a float32 gate on the CPU
+        cpu = MultiLayerNetwork(attention_conf("float32"), device="cpu")
+        cpu.param_table = champ.param_table
+        ev = Evaluation()
+        ev.eval(yh, cpu.output(xh).numpy())
+        cpu_gate = {"f1": ev.f1(), "accuracy": ev.accuracy()}
+        diffs = gate_rows(champ.output(xh), output_logits(cpu, xh))
+        a["gate"] = {"card": {k: ctrl.champion["metrics"][k]
+                              for k in ("f1", "accuracy", "n",
+                                        "eval_seconds")},
+                     "cpu_float32": cpu_gate, "differing_rows": diffs}
+        gate_ok = (ctrl.champion["metrics"]["f1"] >= PIPE_THRESHOLD
+                   and near_ties(diffs, TOL[torch.bfloat16],
+                                 rounded_in=torch.bfloat16)
+                   and (bool(diffs) or ctrl.champion["metrics"]["f1"]
+                        == cpu_gate["f1"]))
+        del champ, cpu
+
+        # the crash drill: killed in CANARY, the next incarnation from
+        # the same state dir re-drives the promotion to the same verdict
+        drill_state = str(PIPE_DIR / "drill_state")
+        drill = DeploymentController(str(root), fleet=fleet,
+                                     state_dir=drill_state, name="drill",
+                                     device=device)
+        journal = drill.journal.read()
+        journal.update({"owner": {"pid": 2 ** 30, "start_time": 1.0},
+                        "phase": CANARY,
+                        "candidate": {"path": want["path"], "step": good,
+                                      "metrics": None}})
+        drill.journal.write(journal)
+        drill.close(release=False)
+        drill = DeploymentController(str(root), fleet=fleet,
+                                     state_dir=drill_state, name="drill",
+                                     device=device)
+        adopted = drill.phase
+        res = drill.run_once()
+        a["crash_drill"] = {"adopted_phase": adopted, "result": res,
+                            "incarnation": drill.incarnation}
+        drill_ok = (adopted == CANARY and drill.incarnation == 1
+                    and res == {"action": "promote", "promoted": True,
+                                "step": good}
+                    and drill.champion["step"] == ctrl.champion["step"])
+        a["ok"] = {"cycles": cycles_ok, "verdicts": verdict_ok,
+                   "memory": memory_ok, "counters": counters_ok,
+                   "stats": stats_ok, "predict": predict_ok,
+                   "gate": gate_ok, "crash_drill": drill_ok}
+        ok = ok and all(a["ok"].values())
+    finally:
+        holdout.evaluate_checkpoint = evaluate
+        for c in (ctrl, drill):
+            if c is not None:
+                c.close()
+        fleet.close()
+        for h in handles:
+            h.close()
+    out["in_process"] = a
+    out["launches"] = launches
+    ok = (ok and launches["flash_bwd_dq"] == n_steps
+          and launches["flash_bwd_dkv"] == n_steps
+          and launches["flash_fwd"] > n_steps)
+
+    # ------------------------------------- (b) cli pipeline, spawned
+    init = PIPE_DIR / "init.ckpt"
+    DefaultModelSaver(str(init)).save(
+        MultiLayerNetwork(attention_conf("bfloat16"), device=device))
+    state = PIPE_DIR / "sub_state"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "pipeline",
+         "--checkpoint-dir", str(root), "--spawn-fleet", "-m", str(init),
+         "--replicas", "2", "--device", dev, "--eval-data",
+         str(paths["held"]), "--eval-threshold", str(PIPE_THRESHOLD),
+         "--state-dir", str(state), "--status-port", "0", "--cycles", "3",
+         "--poll-interval", "1", "--name", "smoke-spawned",
+         # `cli serve` warms at the first layer's n_in (28 here, before
+         # the 28 x 28 reshape), as the JAX CLI does: warm by the probe
+         "--serve-arg=--no-warmup"],
+        capture_output=True, text=True, timeout=600, env=env,
+        cwd=str(Path(__file__).resolve().parent))
+    b = {"rc": sub.returncode, "wall_s": time.perf_counter() - t0,
+         "stderr_tail": sub.stderr[-600:]}
+    announce = json.loads(sub.stdout.splitlines()[0]) \
+        if sub.returncode == 0 else {}
+    b["announce"] = announce
+    controller = json.load(open(state / "controller.journal")) \
+        if (state / "controller.journal").exists() else {}
+    fleet_journal = json.load(open(state / "fleet" / "fleet.journal")) \
+        if (state / "fleet" / "fleet.journal").exists() else {}
+    replicas = list((fleet_journal.get("replicas") or {}).values())
+    served = []
+    for r in replicas:
+        try:
+            served.append(json.loads(http_get(r["url"] + "/stats")[1])
+                          .get("checkpoint"))
+        except OSError:
+            served.append(None)
+    b.update({"champion": controller.get("champion"),
+              "fleet_current_step": fleet_journal.get("current_step"),
+              "replica_states": [r.get("state") for r in replicas],
+              "served": served})
+    # the pipeline handed its warm replicas off to a successor (its
+    # state dir): stop them as one would, then no member may be left
+    for r in replicas:
+        if r.get("pid"):
+            procs.stop_process_group(
+                procs.AdoptedProc(r["pid"], r.get("start_time")))
+    left = {r["pid"]: live_group_members(r["pid"])
+            for r in replicas if r.get("pid")}
+    b["left_in_groups"] = left
+    b_ok = (sub.returncode == 0 and set(announce) == PIPE_ANNOUNCE_KEYS
+            and (controller.get("champion") or {}).get("step") == good
+            and fleet_journal.get("current_step") == good
+            and len(left) == 2 and not any(left.values())
+            and any(s == want for s in served)
+            and all(s == want for s, r in zip(served, replicas)
+                    if r.get("state") == "ready"))
+    b["ok"] = b_ok
+    out["spawned"] = b
+    ok = ok and b_ok
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    out["ok"] = ok
+    return out
+
+
 def lstm_conf(d, compute_dtype):
     return NeuralNetConfiguration(layer="lstm", n_in=d, n_out=d,
                                   activation_function="tanh",
@@ -4531,6 +5052,7 @@ def main(argv=None) -> int:
                      ("guardian", phase_guardian),
                      ("readers", phase_readers),
                      ("cli", phase_cli),
+                     ("pipeline", phase_pipeline),
                      ("lstm", phase_lstm)):
         t0 = time.perf_counter()
         res = fn(device, args.seed)
@@ -4574,6 +5096,8 @@ def main(argv=None) -> int:
             record["guardian"]["launches"][row["name"]]
         row["launches_by_path"]["cli"] = \
             record["cli"]["launches"][row["name"]]
+        row["launches_by_path"]["pipeline"] = \
+            record["pipeline"]["launches"][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
         row["multilayer_shape"] = ml_shape[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"],

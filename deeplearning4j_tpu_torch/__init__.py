@@ -27,6 +27,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+__version__ = "0.1.0"
+
 __all__ = ["default_device"]
 
 

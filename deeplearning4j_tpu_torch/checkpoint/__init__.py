@@ -6,8 +6,10 @@ device-to-host snapshot), `ShardedModelSaver`, `restore_network` and
 the flat <-> per-layer updater-state conversion. Steps cross between
 the packages both ways (docs/CHECKPOINTS.md describes the format).
 
-Held back: `restore_params_for` (target shardings, ROADMAP Queue 1 item
-12) raises; the telemetry series and chaos points are item 14.
+The writer publishes the `dl4j_ckpt_*` telemetry series, and the
+format carries the `checkpoint.write` / `checkpoint.rename` chaos
+points. Held back: `restore_params_for` (target shardings, ROADMAP
+Queue 1 item 12) raises.
 """
 
 from deeplearning4j_tpu_torch.checkpoint.format import (  # noqa: F401

@@ -30,9 +30,12 @@ package writes numpy's `V2` for the same bits and views whatever it
 reads to its manifest dtype, so the crc32 over the bytes holds both
 ways). `load_tree` returns every array leaf as a CPU tensor.
 
-The JAX package's chaos injection points (`checkpoint.write` /
-`checkpoint.rename`) wait for `testing/chaos.py` (ROADMAP Queue 1 item
-14); the `between_files` hook drives the same crash drills.
+Chaos injection points, as in the JAX package (`testing/chaos.py`):
+`checkpoint.write` before each shard file, and `checkpoint.rename`
+before the manifest's publish and again before the `COMMITTED`
+marker's. An error rule at either leaves the step uncommitted, so
+readers never offer it. The `between_files` test hook runs just before
+each point.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.scaleout import checkpoint as _legacy
+from deeplearning4j_tpu_torch.testing import chaos
 
 __all__ = [
     "FORMAT_NAME", "FORMAT_VERSION", "MANIFEST", "MARKER", "HostShard",
@@ -310,6 +314,7 @@ def write_checkpoint(root: str, step: int, payload: Any, *,
             fname = f"{fname_base}.s{i:02d}.npy"
             if between_files is not None:
                 between_files(fname)
+            chaos.hit("checkpoint.write", file=fname)
             # NOT ascontiguousarray: it promotes 0-d scalars to 1-d;
             # tobytes() already yields C-order bytes for the crc
             data = np.asarray(shard.data)
@@ -342,10 +347,12 @@ def write_checkpoint(root: str, step: int, payload: Any, *,
     }
     if between_files is not None:
         between_files(MANIFEST)
+    chaos.hit("checkpoint.rename", file=MANIFEST)
     _publish_json(step_dir, MANIFEST, manifest)
     # the commit point: the marker appears atomically, LAST
     if between_files is not None:
         between_files(MARKER)
+    chaos.hit("checkpoint.rename", file=MARKER)
     _publish_json(step_dir, MARKER,
                   {"step": int(step), "committed_at": time.time()})
     return step_dir

@@ -29,8 +29,17 @@ Each save's record (`stats()["history"]`) holds what the fit thread
 paid, `wait_s` (blocked for a slot) and `snapshot_s` (the copies
 enqueued, of which `alloc_s` went to new pinned buffers), and what the
 writer thread paid, `write_s` (the event wait included), with the most
-saves ever in flight; the JAX package's telemetry series wait for
-`telemetry/` (ROADMAP Queue 1 item 14).
+saves ever in flight.
+
+Telemetry, the JAX package's series: `dl4j_ckpt_saves`,
+`dl4j_ckpt_bytes_written`, `dl4j_ckpt_errors`,
+`dl4j_ckpt_snapshot_seconds` (the fit thread's snapshot),
+`dl4j_ckpt_write_seconds` (the writer thread's serialize + IO), the
+`dl4j_ckpt_in_flight` and `dl4j_ckpt_last_committed_step` gauges, and
+the spans `ckpt_snapshot` (fit thread) and `ckpt_write` (writer thread).
+The fit thread opens the snapshot span (a no-op while tracing is off)
+and raises the in-flight gauge; every other series is updated from the
+writer thread.
 """
 
 from __future__ import annotations
@@ -45,9 +54,30 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import telemetry
 from deeplearning4j_tpu_torch.checkpoint import format as ckfmt
+from deeplearning4j_tpu_torch.telemetry.trace import span
 
 __all__ = ["snapshot_tree", "mesh_spec_of", "AsyncCheckpointWriter"]
+
+
+_M_SAVES = telemetry.counter(
+    "dl4j_ckpt_saves", "sharded checkpoint saves committed")
+_M_BYTES = telemetry.counter(
+    "dl4j_ckpt_bytes_written", "checkpoint shard bytes written")
+_M_ERRORS = telemetry.counter(
+    "dl4j_ckpt_errors", "checkpoint saves that failed")
+_M_SNAP_S = telemetry.histogram(
+    "dl4j_ckpt_snapshot_seconds",
+    "device->host snapshot duration (the synchronous step-loop stall)")
+_M_WRITE_S = telemetry.histogram(
+    "dl4j_ckpt_write_seconds",
+    "background serialize+IO duration per checkpoint")
+_M_IN_FLIGHT = telemetry.gauge(
+    "dl4j_ckpt_in_flight", "checkpoint saves snapshot-taken but not yet "
+    "committed")
+_M_LAST_STEP = telemetry.gauge(
+    "dl4j_ckpt_last_committed_step", "newest committed checkpoint step")
 
 
 class _PinnedPool:
@@ -232,7 +262,8 @@ class AsyncCheckpointWriter:
                                           self._pending)
         t1 = time.perf_counter()
         try:
-            host, event, copies = _snapshot_async(payload, self._pool)
+            with span("ckpt_snapshot", step=int(step)):
+                host, event, copies = _snapshot_async(payload, self._pool)
         except BaseException:
             with self._cond:
                 self._pending -= 1
@@ -242,6 +273,7 @@ class AsyncCheckpointWriter:
                   "snapshot_s": time.perf_counter() - t1,
                   "alloc_s": copies.alloc_s}
         fut: Future = Future()
+        _M_IN_FLIGHT.inc()
         self._queue.put((int(step), host, event, copies.buffers, mesh_spec,
                          fut, record))
         if wait:
@@ -312,23 +344,31 @@ class AsyncCheckpointWriter:
                 return
             step, host, event, buffers, mesh_spec, fut, record = item
             t0 = time.perf_counter()
+            _M_SNAP_S.observe(record["snapshot_s"])
             try:
-                if event is not None:
-                    event.synchronize()  # the snapshot's copies landed
-                path = ckfmt.write_checkpoint(
-                    self.root, step, host, mesh_spec=mesh_spec,
-                    between_files=self.between_files)
+                with span("ckpt_write", step=step):
+                    if event is not None:
+                        event.synchronize()  # the snapshot's copies landed
+                    path = ckfmt.write_checkpoint(
+                        self.root, step, host, mesh_spec=mesh_spec,
+                        between_files=self.between_files)
                 manifest = ckfmt.read_manifest(self.root, step)
                 record["bytes"] = manifest.get("total_bytes", 0)
+                _M_BYTES.inc(record["bytes"])
+                _M_SAVES.inc()
+                _M_LAST_STEP.set(step)
                 ckfmt.prune(self.root, self.keep, protect=(step,))
                 record["write_s"] = time.perf_counter() - t0
                 self.history.append(record)
                 fut.set_result(path)
             except BaseException as e:  # noqa: BLE001 — relay, don't die
+                _M_ERRORS.inc()
                 with self._error_lock:
                     self._error = e
                 fut.set_exception(e)
             finally:
+                _M_IN_FLIGHT.dec()
+                _M_WRITE_S.observe(time.perf_counter() - t0)
                 if event is None or event.query():
                     self._pool.give(buffers)  # nothing reads them now
                 with self._cond:

@@ -19,14 +19,16 @@ Usage (CLI = `python -m deeplearning4j_tpu_torch.cli`):
     CLI fleet   -m model.ckpt --replicas 2 --device cpu \
                 --serve-arg=--transformer --serve-arg='{"vocab_size": 64}'
     CLI batch   --url http://127.0.0.1:PORT -i prompts.jsonl -o out.jsonl
+    CLI pipeline --checkpoint-dir ckpts/ --spawn-fleet -m model.ckpt \
+                 --eval-data heldout.csv --state-dir state/ --cycles 10
 
 `-m` accepts a conf .json (fresh net), a single-file .ckpt, or a sharded
 checkpoint DIRECTORY for train/test/predict/eval. Checkpoints cross
 between this CLI and the JAX package's both ways.
 
-Device: `train`, `test`, `predict`, `eval`, `serve` and `fleet` take
-`--device cuda|cpu` (default cuda, the counterpart of pointing the JAX CLI
-at a platform). With `cuda` and no CUDA device the command prints "no
+Device: `train`, `test`, `predict`, `eval`, `serve`, `fleet` and
+`pipeline` take `--device cuda|cpu` (default cuda, the counterpart of
+pointing the JAX CLI at a platform). With `cuda` and no CUDA device the command prints "no
 CUDA device" and exits 2; it never carries on on the CPU. `fleet` runs
 its router on the host and passes `--device` to every replica it spawns
 (an operator's `--serve-arg=--device` still wins, as the later argparse
@@ -43,12 +45,19 @@ LM with the port's own initialiser, which is a pure function of (seed,
 config): every process given the same SPEC holds the same weights, but
 not the JAX CLI's (carry weights across with `weights.params_from_jax`).
 
+`pipeline` runs the deployment controller (deploy/controller.py): it
+watches `--checkpoint-dir`, gates each committed step on `--eval-data`
+on `--device`, and promotes it through a fleet (`--fleet-url`, or
+`--spawn-fleet`, which passes `--device` to every replica it spawns).
+`train`, `serve`, `fleet` and `pipeline` take `--metrics-port` (a
+standalone /metrics endpoint, announced up front) and `--trace PATH` (a
+Chrome trace of the host spans, written on exit).
+
 The parser takes every subcommand and flag of the JAX CLI, so an argv
-written for it parses. What is not ported yet (`watchdog`, `pipeline`;
-train's `--elastic`, `--metrics-port`, `--trace`, `--compile-cache`;
-serve's and fleet's `--compile-cache` and serve's `--warmup-plan PATH`)
-prints the ROADMAP item that brings it and exits 2 before doing
-anything.
+written for it parses. What is not ported yet (`watchdog` and train's
+`--elastic`, item 14b; the `--compile-cache` of train, serve, fleet and
+pipeline, and serve's `--warmup-plan PATH`, item 14c) prints the
+ROADMAP item that brings it and exits 2 before doing anything.
 
 Input CSV: one row per example, features then (for train/test) one-hot or
 integer label in the last column(s) — controlled by --label-columns.
@@ -67,19 +76,15 @@ import torch
 
 #: subcommands of the JAX CLI that this port has not taken yet
 NOT_PORTED = {
-    "watchdog": "ROADMAP Queue 1 item 14 (control plane)",
-    "pipeline": "ROADMAP Queue 1 item 11b (deploy/controller.py)",
+    "watchdog": "ROADMAP Queue 1 item 14b (control plane: scaleout/)",
 }
 
 #: train flags of the JAX CLI that this port has not taken yet:
 #: (args attribute, flag) -> ROADMAP item
 FLAGS_NOT_PORTED = {
-    ("elastic", "--elastic"): "ROADMAP Queue 1 item 14 (scaleout/: the "
+    ("elastic", "--elastic"): "ROADMAP Queue 1 item 14b (scaleout/: the "
                               "elastic supervisor)",
-    ("metrics_port", "--metrics-port"): "ROADMAP Queue 1 item 14 "
-                                        "(telemetry/)",
-    ("trace", "--trace"): "ROADMAP Queue 1 item 14 (telemetry/)",
-    ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14 "
+    ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14c "
                                           "(compilecache/)",
 }
 
@@ -89,11 +94,17 @@ FLEET_FLAGS_NOT_PORTED = {
                                                 "14c (compilecache/)",
 }
 
+#: pipeline flags of the JAX CLI that this port has not taken yet
+PIPELINE_FLAGS_NOT_PORTED = {
+    ("compile_cache", "pipeline --compile-cache"): "ROADMAP Queue 1 item "
+                                                   "14c (compilecache/)",
+}
+
 #: serve flags of the JAX CLI that this port has not taken yet
 SERVE_FLAGS_NOT_PORTED = {
-    ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14 "
+    ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14c "
                                           "(compilecache/)",
-    ("warmup_plan", "--warmup-plan PATH"): "ROADMAP Queue 1 item 14 "
+    ("warmup_plan", "--warmup-plan PATH"): "ROADMAP Queue 1 item 14c "
                                            "(warmup plans)",
 }
 
@@ -174,6 +185,43 @@ def _refused_flag(args, table=None, accepted=None) -> bool:
     return False
 
 
+class _Telemetry:
+    """Shared --metrics-port / --trace plumbing for train, serve, fleet
+    and pipeline: an optional standalone /metrics endpoint for the run's
+    lifetime, and a Chrome-trace dump (telemetry/trace.py, host spans
+    only; the torch.profiler bridge stays off) on exit."""
+
+    def __init__(self, args):
+        self.metrics = None
+        self.trace_path = getattr(args, "trace", None)
+        port = getattr(args, "metrics_port", None)
+        if port is not None:
+            from deeplearning4j_tpu_torch.telemetry.exposition import \
+                start_metrics_server
+
+            self.metrics = start_metrics_server(port=port)
+        if self.trace_path:
+            from deeplearning4j_tpu_torch.telemetry import start_tracing
+
+            start_tracing()
+
+    def announce(self) -> dict:
+        return ({"metrics": self.metrics.url + "/metrics"}
+                if self.metrics is not None else {})
+
+    def close(self) -> dict:
+        out = {}
+        if self.trace_path:
+            from deeplearning4j_tpu_torch.telemetry import \
+                save_chrome_trace
+
+            if save_chrome_trace(self.trace_path):
+                out["trace"] = self.trace_path
+        if self.metrics is not None:
+            self.metrics.close()
+        return out
+
+
 def cmd_train(args) -> int:
     from deeplearning4j_tpu_torch.scaleout.checkpoint import \
         DefaultModelSaver
@@ -188,47 +236,61 @@ def cmd_train(args) -> int:
     device = _device(args)
     if device is None:
         return 2
-    resume_info = None
-    if args.resume:
-        net, resume_info = _resume_network(args, device)
-        if net is None:
-            return 2
-    else:
-        net = _load_model(args.model, device)
-    x, y = _load_csv(args.input, args.label_columns, _model_n_out(net))
-    if y is None:
-        print("train requires labels (--label-columns >= 1)",
-              file=sys.stderr)
-        return 2
-    saver = None
-    if args.checkpoint_dir:
-        # sharded async autosaves off the hot path
-        from deeplearning4j_tpu_torch.checkpoint import ShardedModelSaver
-
-        saver = ShardedModelSaver(args.checkpoint_dir,
-                                  keep=args.checkpoint_keep)
+    tele = _Telemetry(args)
+    if tele.metrics is not None:
+        # announce BEFORE the fit: the auto-assigned port is useless if
+        # it first appears after the endpoint is already shut down
+        print(json.dumps(tele.announce()), flush=True)
     try:
-        every = (args.checkpoint_every or 1
-                 if saver is not None else None)
-        if resume_info is not None:
-            _fit_resumed(net, x, y, args, saver, resume_info)
-        elif args.batch_size:
-            # iterator path: the checkpoint cursor counts these
-            # mini-batches, which is what --resume fast-forwards to
-            from deeplearning4j_tpu_torch.datasets import (
-                DataSet, ListDataSetIterator)
-
-            net.fit(ListDataSetIterator(DataSet(x, y), args.batch_size),
-                    epochs=args.epochs, saver=saver, checkpoint_every=every)
+        resume_info = None
+        if args.resume:
+            net, resume_info = _resume_network(args, device)
+            if net is None:
+                return 2
         else:
-            net.fit(x, y, epochs=args.epochs, saver=saver,
-                    checkpoint_every=every)
+            net = _load_model(args.model, device)
+        x, y = _load_csv(args.input, args.label_columns, _model_n_out(net))
+        if y is None:
+            print("train requires labels (--label-columns >= 1)",
+                  file=sys.stderr)
+            return 2
+        saver = None
+        if args.checkpoint_dir:
+            # sharded async autosaves off the hot path
+            from deeplearning4j_tpu_torch.checkpoint import \
+                ShardedModelSaver
+
+            saver = ShardedModelSaver(args.checkpoint_dir,
+                                      keep=args.checkpoint_keep)
+        try:
+            every = (args.checkpoint_every or 1
+                     if saver is not None else None)
+            if resume_info is not None:
+                _fit_resumed(net, x, y, args, saver, resume_info)
+            elif args.batch_size:
+                # iterator path: the checkpoint cursor counts these
+                # mini-batches, which is what --resume fast-forwards to
+                from deeplearning4j_tpu_torch.datasets import (
+                    DataSet, ListDataSetIterator)
+
+                net.fit(ListDataSetIterator(DataSet(x, y), args.batch_size),
+                        epochs=args.epochs, saver=saver,
+                        checkpoint_every=every)
+            else:
+                net.fit(x, y, epochs=args.epochs, saver=saver,
+                        checkpoint_every=every)
+        finally:
+            if saver is not None:
+                saver.close()  # every pending autosave is durable
+        DefaultModelSaver(args.output).save(net)
+        score = float(net.score(x, y))
     finally:
-        if saver is not None:
-            saver.close()  # every pending autosave is durable
-    DefaultModelSaver(args.output).save(net)
-    score = float(net.score(x, y))
-    summary = {"saved": args.output, "score": score}
+        # a failing fit (divergence abort, preemption) is exactly the
+        # run whose trace is wanted: flush it on the way out too
+        closed = tele.close()
+    # announce() is NOT repeated here: the metrics endpoint is already
+    # closed, and a dead URL in the summary line would mislead parsers
+    summary = {"saved": args.output, "score": score, **closed}
     if resume_info is not None:
         summary["resumed_from"] = resume_info["step"]
     print(json.dumps(summary))
@@ -598,42 +660,6 @@ def cmd_batch(args) -> int:
     return 0
 
 
-class _Telemetry:
-    """`serve`'s --metrics-port / --trace: an optional standalone
-    /metrics endpoint for the run's lifetime, and a Chrome-trace dump on
-    exit."""
-
-    def __init__(self, args):
-        self.metrics = None
-        self.trace_path = getattr(args, "trace", None)
-        port = getattr(args, "metrics_port", None)
-        if port is not None:
-            from deeplearning4j_tpu_torch.telemetry.exposition import \
-                start_metrics_server
-
-            self.metrics = start_metrics_server(port=port)
-        if self.trace_path:
-            from deeplearning4j_tpu_torch.telemetry import start_tracing
-
-            start_tracing()
-
-    def announce(self) -> dict:
-        return ({"metrics": self.metrics.url + "/metrics"}
-                if self.metrics is not None else {})
-
-    def close(self) -> dict:
-        out = {}
-        if self.trace_path:
-            from deeplearning4j_tpu_torch.telemetry import \
-                save_chrome_trace
-
-            if save_chrome_trace(self.trace_path):
-                out["trace"] = self.trace_path
-        if self.metrics is not None:
-            self.metrics.close()
-        return out
-
-
 def _transformer_from_spec(spec: str, device):
     """(params, cfg) from a transformer SPEC: a JSON object (inline or a
     file path) of TransformerConfig fields plus an optional "seed"
@@ -977,6 +1003,124 @@ def cmd_fleet(args) -> int:
         # router is stopping the fleet
         handle.close(stop_replicas=not handoff_exit,
                      handoff=handoff_exit)
+        tele.close()
+    return 0
+
+
+def cmd_pipeline(args) -> int:
+    """`pipeline`: the crash-safe train->serve deployment controller —
+    watch --checkpoint-dir for newly COMMITTED steps, gate each on a
+    held-out eval (on `--device`), canary-promote it through the fleet's
+    rolling /reload, roll back + quarantine on failure. Journals to
+    --state-dir/controller.journal so a killed controller restarts into
+    the same decision. `--spawn-fleet` passes `--device` to every
+    replica it spawns (before the operator's `--serve-arg`s, which
+    win)."""
+    from deeplearning4j_tpu_torch.deploy import (ControllerBusy,
+                                                 DeploymentController)
+
+    if _refused_flag(args, PIPELINE_FLAGS_NOT_PORTED,
+                     accepted={"compile_cache": ("off",)}):
+        return 2
+    if bool(args.fleet_url) == bool(args.spawn_fleet):
+        print("pipeline needs exactly one of --fleet-url URL or "
+              "--spawn-fleet (with -m MODEL)", file=sys.stderr)
+        return 2
+    if args.spawn_fleet and not args.model:
+        print("--spawn-fleet needs -m MODEL for the replicas",
+              file=sys.stderr)
+        return 2
+    if args.eval_via_fleet and not args.fleet_url:
+        print("--eval-via-fleet scores the LIVE fleet over HTTP and "
+              "needs --fleet-url (a router endpoint, not --spawn-fleet)",
+              file=sys.stderr)
+        return 2
+    device = _device(args)
+    if device is None:
+        return 2
+    probe = None
+    if args.probe:
+        probe = json.loads(args.probe)
+    tele = _Telemetry(args)
+    fleet = None
+    handle = None
+    handoff_exit = bool(args.state_dir) and not args.smoke
+    ctrl = None
+    try:
+        if args.spawn_fleet:
+            from deeplearning4j_tpu_torch.serving.fleet import (
+                Fleet, ReplicaSpawner)
+            from deeplearning4j_tpu_torch.serving.router import serve_fleet
+
+            fleet = Fleet(
+                spawner=ReplicaSpawner(
+                    args.model,
+                    serve_args=["--device", args.device] + args.serve_arg),
+                state_dir=(os.path.join(args.state_dir, "fleet")
+                           if args.state_dir else None),
+                initial_checkpoint=(args.model
+                                    if not args.model.endswith(".json")
+                                    else None))
+            have = sum(1 for r in fleet.snapshot()["replicas"].values()
+                       if r["spawned"] and r["state"] != "evicted")
+            if args.replicas > have:
+                fleet.spawn(args.replicas - have)
+            handle = serve_fleet(fleet, host=args.host, port=args.port)
+            fleet.wait_ready(1, timeout=args.ready_timeout)
+        ctrl = DeploymentController(
+            args.checkpoint_dir,
+            fleet=fleet,
+            fleet_url=args.fleet_url,
+            eval_data=args.eval_data,
+            eval_via_fleet=args.eval_via_fleet,
+            label_columns=args.label_columns,
+            metric=args.metric,
+            eval_threshold=args.eval_threshold,
+            regression_margin=args.regression_margin,
+            poll_interval=args.poll_interval,
+            probe=probe,
+            state_dir=args.state_dir,
+            name=args.name,
+            status_port=args.status_port,
+            device=device)
+    except ControllerBusy as exc:
+        print(f"pipeline already running: {exc}", file=sys.stderr)
+        if handle is not None:
+            handle.close(stop_replicas=not handoff_exit,
+                         handoff=handoff_exit)
+        elif fleet is not None:
+            fleet.close(stop_replicas=not handoff_exit,
+                        handoff=handoff_exit)
+        tele.close()
+        return 3
+    except BaseException:
+        if handle is not None:
+            handle.close(stop_replicas=not handoff_exit,
+                         handoff=handoff_exit)
+        elif fleet is not None:
+            fleet.close(stop_replicas=not handoff_exit,
+                        handoff=handoff_exit)
+        tele.close()
+        raise
+    print(json.dumps({"pipeline": ctrl.name,
+                      "checkpoint_dir": os.path.abspath(
+                          args.checkpoint_dir),
+                      "fleet": (handle.url if handle is not None
+                                else args.fleet_url),
+                      "status": ctrl.status_address,
+                      "incarnation": ctrl.incarnation,
+                      **tele.announce()}), flush=True)
+    try:
+        if args.smoke:
+            return 0
+        ctrl.run(max_cycles=args.cycles)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        ctrl.close(release=True)
+        if handle is not None:
+            handle.close(stop_replicas=not handoff_exit,
+                         handoff=handoff_exit)
         tele.close()
     return 0
 
@@ -1523,7 +1667,12 @@ def build_parser() -> argparse.ArgumentParser:
     p_pipe.add_argument("--smoke", action="store_true",
                         help="start, print the announce line, shut down")
     telemetry_flags(p_pipe)
-    p_pipe.set_defaults(fn=_not_ported("pipeline"))
+    p_pipe.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="where the eval gate runs, and the device "
+                             "every --spawn-fleet replica is given "
+                             "(default: the CUDA device; exits 2 without "
+                             "one)")
+    p_pipe.set_defaults(fn=cmd_pipeline)
     return parser
 
 

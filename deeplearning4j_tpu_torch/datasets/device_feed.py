@@ -18,6 +18,11 @@ copies, the counterpart of the JAX package's `datasets/device_feed.py`.
    pass; `fast_forward(n)` drops the first `n` source batches of the
    next pass without padding or copying them, so a resumed run starts
    at a checkpoint's within-epoch cursor (the guardian's `epoch_batch`).
+
+Telemetry, the JAX package's series: `dl4j_feed_batches`,
+`dl4j_feed_padded_examples`, `dl4j_feed_bucket_hits{bucket=}` and the
+`dl4j_feed_prefetch_depth` gauge, process-wide twins of `stats()`
+(host counters; nothing is read from the device).
 """
 
 from __future__ import annotations
@@ -28,10 +33,23 @@ from typing import Any, Iterator, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import default_device
+from deeplearning4j_tpu_torch import default_device, telemetry
 
 __all__ = ["FeedBatch", "DeviceFeed", "feed_mask", "pow2_buckets",
            "bucket_for", "pad_rows", "DEFAULT_MIN_BUCKET"]
+
+# feed pipeline telemetry: process-wide twins of the per-feed stats()
+# counters, so bucket behavior and prefetch health show up in /metrics
+# without holding a DeviceFeed reference
+_M_BATCHES = telemetry.counter(
+    "dl4j_feed_batches", "batches staged through DeviceFeed")
+_M_PADDED = telemetry.counter(
+    "dl4j_feed_padded_examples", "bucketing padding rows shipped")
+_M_BUCKET = telemetry.counter(
+    "dl4j_feed_bucket_hits", "batches landing in each bucket size")
+_M_QUEUE = telemetry.gauge(
+    "dl4j_feed_prefetch_depth", "device_put transfers in flight ahead "
+    "of the train step (last observed window size)")
 
 #: smallest bucket of the default ladder: tiny tail batches share one
 #: shape instead of one each
@@ -157,6 +175,9 @@ class DeviceFeed:
         self.bucket_hits[b] = self.bucket_hits.get(b, 0) + 1
         self.padded_examples += b - n
         self.batches += 1
+        _M_BATCHES.inc()
+        _M_PADDED.inc(b - n)
+        _M_BUCKET.labels(bucket=str(b)).inc()
         if b != n:
             f = np.concatenate([f, np.zeros((b - n, *f.shape[1:]), f.dtype)])
             l = np.concatenate([l, np.zeros((b - n, *l.shape[1:]), l.dtype)])
@@ -207,9 +228,11 @@ class DeviceFeed:
             if len(window) < depth:
                 continue
             self.cursor += 1
+            _M_QUEUE.set(len(window) - 1)
             yield window.popleft()
         while window:
             self.cursor += 1
+            _M_QUEUE.set(len(window) - 1)
             yield window.popleft()
 
     # --------------------------------------------------- iterator surface

@@ -42,20 +42,35 @@ fault it gives the unguarded step's params bit for bit),
 `checkpoint_every=` / `saver=` autosave and arm the preemption flush,
 and `start_position` / `start_epoch` / `start_epoch_batch` seed the
 cursor of a resumed run. With all of them off, `fit` and `fit_scan` run
-the unguarded step. The JAX package's telemetry counters, chaos points
-and compile cache are left out.
+the unguarded step.
+
+Telemetry, the JAX package's series and spans: `dl4j_train_steps`,
+`dl4j_train_examples` (padded rows included), `dl4j_train_epochs`,
+`dl4j_train_step_seconds{source=fit|scan}` and `dl4j_train_loss`; the
+spans `train_step` (a `fit` step), `fit_scan` and `fit_scan_epoch`;
+`dl4j_jit_programs{cache="train_step"|"predict_step"}` over the
+distinct batch shapes a step or a bucketed forward has run (the port's
+count of what the JAX package compiles). All of it is host counters:
+the loss is gauged only where a host read already happens (listeners,
+`fit_scan(sync=True)`), so a step syncs as often, and leaves the same
+params bit for bit, with telemetry on or off. The `train.batch` chaos
+point poisons a `fit` batch before its step, as in the JAX package;
+with no active plan it costs one global check. The compile cache is
+left out (ROADMAP Queue 1 item 14c).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from deeplearning4j_tpu_torch import default_device
+from deeplearning4j_tpu_torch import default_device, telemetry
 from deeplearning4j_tpu_torch.config.multi_layer_configuration import (
     MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.datasets.device_feed import (
@@ -69,9 +84,29 @@ from deeplearning4j_tpu_torch.optimize.guardian import (GuardianAbort,
 from deeplearning4j_tpu_torch.optimize.solver import Solver
 from deeplearning4j_tpu_torch.optimize.solvers import ravel_table
 from deeplearning4j_tpu_torch.optimize.updater import NetworkGradientUpdater
+from deeplearning4j_tpu_torch.telemetry.trace import span
+from deeplearning4j_tpu_torch.testing import chaos
 from deeplearning4j_tpu_torch.utils.sanitize import validate_batch
 
 log = logging.getLogger(__name__)
+
+# telemetry: host-side counters only. Nothing here reads a device value,
+# so the training math is bit-identical with telemetry on or off, and
+# the loss is gauged only where a float(score) host read already exists
+# (listener dispatch, fit_scan's sync=True return).
+_M_STEPS = telemetry.counter(
+    "dl4j_train_steps", "supervised train steps dispatched")
+_M_EXAMPLES = telemetry.counter(
+    "dl4j_train_examples", "example rows dispatched (incl. bucket padding)")
+_M_EPOCHS = telemetry.counter("dl4j_train_epochs", "training epochs run")
+_M_STEP_S = telemetry.histogram(
+    "dl4j_train_step_seconds",
+    "wall time per train step; source=fit is per-step dispatch wall "
+    "time, source=scan is the per-step average of a compiled epoch, "
+    "source=parallel is the DP/ZeRO-1/TP trainer dispatch loop, "
+    "source=listener is StepTimeListener's listener-to-listener time")
+_M_LOSS = telemetry.gauge(
+    "dl4j_train_loss", "last host-synced training score")
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -105,7 +140,16 @@ class MultiLayerNetwork(nn.Module):
         #: progress (None otherwise): a listener may call its
         #: request_preemption()
         self.guard = None
+        #: distinct (batch shapes, dtype, masked, guarded) a fit step and
+        #: a bucketed forward have run: the port's program counts
+        self._train_programs: set = set()
+        self._predict_programs: set = set()
         self.init()
+        # program counters surface as dl4j_jit_programs{cache=...}
+        # (weak-ref'd: watching never extends this network's lifetime)
+        from deeplearning4j_tpu_torch.telemetry import device as _tdev
+        _tdev.watch_jit_cache("train_step", self.train_step_cache_size)
+        _tdev.watch_jit_cache("predict_step", self.predict_step_cache_size)
 
     # ------------------------------------------------------------- set-up
     def _infer_layer_sizes(self) -> None:
@@ -146,14 +190,30 @@ class MultiLayerNetwork(nn.Module):
         package's `next_key()`)."""
         return int(torch.randint(0, 1 << 62, (), generator=self._seeds))
 
-    def _dispatch(self, score) -> None:
-        """Call the listeners with the last iteration and the score, read
-        back to the host only when there are listeners."""
-        if self.listeners:
-            score = float(score)
-            for listener in self.listeners:
-                listener.iteration_done(self, self._iteration_count - 1,
-                                        score)
+    def _dispatch(self, score, read: bool = False):
+        """Call the listeners with the last iteration and the score. The
+        score is read back to the host (and gauged as dl4j_train_loss)
+        only when there are listeners or the caller reads it anyway
+        (`read`); returns the float then, else None."""
+        if not (self.listeners or read):
+            return None
+        score = float(score)
+        _M_LOSS.set(score)
+        for listener in self.listeners:
+            listener.iteration_done(self, self._iteration_count - 1, score)
+        return score
+
+    def train_step_cache_size(self) -> int:
+        """Distinct batch shapes (with dtype, masking and guarding) the
+        fit train step has run: the counterpart of the JAX package's
+        compiled-program count, which bucketing keeps at the buckets
+        hit. 0 before the first backprop step."""
+        return len(self._train_programs)
+
+    def predict_step_cache_size(self) -> int:
+        """Distinct bucket shapes the bucketed forward (`output`) has run
+        (the train_step_cache_size analogue for inference)."""
+        return len(self._predict_programs)
 
     def _tensor(self, a) -> torch.Tensor:
         """An input on this network's device; float64 narrows to float32
@@ -379,6 +439,7 @@ class MultiLayerNetwork(nn.Module):
             if pretrain:
                 self.pretrain(raw)  # host-driven per layer: unguarded
             for _ in range(epochs):
+                _M_EPOCHS.inc()
                 if guard is not None:
                     guard.begin_epoch()
                 if feed is not None:
@@ -398,6 +459,7 @@ class MultiLayerNetwork(nn.Module):
         if pretrain:
             self.pretrain(x)
         for _ in range(epochs):
+            _M_EPOCHS.inc()
             if guard is not None:
                 guard.begin_epoch()
             self._fit_supervised(x, labels, None, guard)
@@ -426,19 +488,35 @@ class MultiLayerNetwork(nn.Module):
         state carried across batches; guarded steps when `guard` has a
         policy. Any other algorithm: the batch solver over the whole
         packed vector, made once and kept."""
+        # chaos numeric-fault point: a "nan" rule poisons this batch (a
+        # copy, on its device) before the step, producing the non-finite
+        # grads the guardian's defense exists for; one global check
+        # without an active plan
+        x = chaos.maybe_nan("train.batch", x)
         conf0 = self.layers[-1].conf
         algo = conf0.optimization_algo.lower()
         guarded = guard is not None and guard.guarded
         if algo == "iteration_gradient_descent":
             if guarded:
                 self._arm(guard)
+            self._train_programs.add(
+                (guarded, tuple(x.shape), x.dtype, tuple(labels.shape),
+                 n_valid is None))
             score = None
+            step_child = _M_STEP_S.labels(source="fit")
             for _ in range(conf0.num_iterations):
+                t0 = time.perf_counter()
                 if guarded:
-                    score = self._guarded_step(guard, x, labels, n_valid)
+                    with span("train_step", guarded=True):
+                        score = self._guarded_step(guard, x, labels,
+                                                   n_valid)
                     self._observe(guard, score, 1)
                 else:
-                    score = self._train_step(x, labels, n_valid)
+                    with span("train_step"):
+                        score = self._train_step(x, labels, n_valid)
+                step_child.observe(time.perf_counter() - t0)
+                _M_STEPS.inc()
+                _M_EXAMPLES.inc(x.shape[0])
             self._dispatch(score)
             return
         if guarded:
@@ -631,31 +709,52 @@ class MultiLayerNetwork(nn.Module):
                            start_epoch=start_epoch,
                            start_epoch_batch=start_epoch_batch)
         if guard is None:
-            score = self._scan_epochs(batches, int(epochs), None)
+            t0 = time.perf_counter()
+            with span("fit_scan", epochs=int(epochs), batches=n_batches):
+                score = self._scan_epochs(batches, int(epochs), None)
+            steps = int(epochs) * n_batches
+            _M_STEP_S.labels(source="scan").observe(
+                (time.perf_counter() - t0) / max(1, steps))
+            _M_STEPS.inc(steps)
+            _M_EXAMPLES.inc(int(epochs) * n)
+            _M_EPOCHS.inc(int(epochs))
         else:
             with guard:
-                score = self._scan_epochs(batches, int(epochs), guard)
-        self._dispatch(score)
-        return float(score) if sync else score
+                score = self._scan_epochs(batches, int(epochs), guard, n)
+        score_f = self._dispatch(score, read=sync)
+        return score_f if sync else score
 
-    def _scan_epochs(self, batches, epochs: int, guard) -> torch.Tensor:
+    def _scan_epochs(self, batches, epochs: int, guard,
+                     n: int = 0) -> torch.Tensor:
         """fit_scan's loop for the guarded and the plain path; with
-        guard=None every guard hook is skipped. Returns the last score."""
+        guard=None every guard hook is skipped (and the caller publishes
+        the telemetry of the whole call), else each epoch publishes its
+        own over its `n` rows. Returns the last score."""
         guarded = guard is not None and guard.guarded
         if guarded:
             self._arm(guard)
         score = None
+        scan_child = _M_STEP_S.labels(source="scan")
+        tags = {"guarded": True} if guarded else {}
         for _ in range(epochs):
             if guard is not None:
                 guard.begin_epoch()
-            for batch in batches:
-                if guarded:
-                    score = self._guarded_step(guard, *batch)
-                else:
-                    score = self._train_step(*batch)
+            t0 = time.perf_counter()
+            with (span("fit_scan_epoch", **tags, batches=len(batches))
+                  if guard is not None else contextlib.nullcontext()):
+                for batch in batches:
+                    if guarded:
+                        score = self._guarded_step(guard, *batch)
+                    else:
+                        score = self._train_step(*batch)
             if guarded:
                 self._observe(guard, score, len(batches))
             if guard is not None:
+                scan_child.observe(
+                    (time.perf_counter() - t0) / max(1, len(batches)))
+                _M_STEPS.inc(len(batches))
+                _M_EXAMPLES.inc(n)
+                _M_EPOCHS.inc()
                 guard.tick()
         return score
 
@@ -680,6 +779,7 @@ class MultiLayerNetwork(nn.Module):
         self._validate(x, context="output")
         n = x.shape[0]
         b = bucket_for(n, (DEFAULT_MIN_BUCKET,))
+        self._predict_programs.add((b, tuple(x.shape[1:]), x.dtype))
         with torch.no_grad():
             return self.feed_forward_fn(self.param_table,
                                         pad_rows(x, b))[-1][:n]

@@ -37,11 +37,12 @@ Three tiers, as in the JAX package:
 
 Guardian events (skips, rollbacks, saves, aborts) reach any listener
 with a `guardian_event(model, event)` hook
-(`optimize.listeners.GuardianListener` / `CollectGuardianEvents`).
+(`optimize.listeners.GuardianListener` / `CollectGuardianEvents`), and
+count in the `dl4j_guardian_events{kind=}` telemetry series, every
+kind registered at 0 so a scrape sees it before the first fault.
 
-Left out until their ROADMAP Queue 1 items: `all_finite(axis_name=...)`
-(the all-replica veto of explicit-collective trainers, item 12) raises;
-the `dl4j_guardian_events` counter (item 14).
+Left out until its ROADMAP Queue 1 item: `all_finite(axis_name=...)`
+(the all-replica veto of explicit-collective trainers, item 12) raises.
 """
 
 from __future__ import annotations
@@ -54,10 +55,18 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from deeplearning4j_tpu_torch import default_device
+from deeplearning4j_tpu_torch import default_device, telemetry
 from deeplearning4j_tpu_torch.optimize.terminations import DivergenceCondition
 
 log = logging.getLogger(__name__)
+
+# every guardian event flows through TrainingGuard._emit, so one counter
+# covers skips/rollbacks/aborts/autosaves/preemptions; the known kinds
+# are pre-seeded at 0 so a scrape sees the series before the first fault
+_M_EVENTS = telemetry.counter(
+    "dl4j_guardian_events", "guardian escalation/autosave events by kind")
+for _kind in ("skip", "rollback", "abort", "autosave", "preempt"):
+    _M_EVENTS.labels(kind=_kind)
 
 __all__ = [
     "GuardianState", "guardian_state", "all_finite", "commit", "advance",
@@ -541,6 +550,7 @@ class TrainingGuard:
     def _emit(self, kind: str, step: int, info: Optional[dict] = None
               ) -> None:
         event = GuardianEvent(kind, step, dict(info or {}))
+        _M_EVENTS.labels(kind=kind).inc()
         level = (logging.WARNING if kind in ("rollback", "abort", "preempt")
                  else logging.INFO)
         log.log(level, "guardian %s at step %d: %s", kind, step, event.info)

@@ -13,10 +13,12 @@ A listener is called with the score as a Python float, so attaching one
 makes the solver read the score back to the host every iteration (the
 eager path of `solvers.BaseOptimizer.optimize`).
 
-Left out: the JAX package's listeners also publish into its telemetry
-registry (`dl4j_train_loss`, `dl4j_train_step_seconds`,
-`dl4j_listener_iterations`); `telemetry/` is not ported yet (ROADMAP
-Queue 1 item 14), so these listeners keep their own records only.
+Telemetry, as in the JAX package: the listeners keep their public API
+and also publish into the process-global registry (`telemetry/`):
+scores land on the `dl4j_train_loss` gauge, dispatches count in
+`dl4j_listener_iterations`, and StepTimeListener's deltas go to the
+`dl4j_train_step_seconds{source="listener"}` histogram. The score is
+already a Python float here, so publishing it reads nothing back.
 """
 
 from __future__ import annotations
@@ -27,7 +29,15 @@ import statistics
 import time
 from typing import Iterable, Optional
 
+from deeplearning4j_tpu_torch import telemetry
+
 log = logging.getLogger(__name__)
+
+_M_LOSS = telemetry.gauge(
+    "dl4j_train_loss", "last host-synced training score")
+_M_STEP_S = telemetry.histogram("dl4j_train_step_seconds")
+_M_ITER = telemetry.counter(
+    "dl4j_listener_iterations", "iteration_done listener dispatches")
 
 
 class IterationListener:
@@ -40,6 +50,8 @@ class ScoreIterationListener(IterationListener):
         self.print_every = max(1, print_every)
 
     def iteration_done(self, model, iteration: int, score: float) -> None:
+        _M_ITER.inc()
+        _M_LOSS.set(score)
         if iteration % self.print_every == 0:
             log.info("Score at iteration %d is %s", iteration, score)
 
@@ -60,7 +72,10 @@ class CollectScoresListener(IterationListener):
         self.scores = []
 
     def iteration_done(self, model, iteration: int, score: float) -> None:
-        self.scores.append((iteration, float(score)))
+        score = float(score)
+        _M_ITER.inc()
+        _M_LOSS.set(score)
+        self.scores.append((iteration, score))
 
 
 class StepTimeListener(IterationListener):
@@ -78,6 +93,7 @@ class StepTimeListener(IterationListener):
         if self._last is not None:
             dt = now - self._last
             self.step_times.append(dt)
+            _M_STEP_S.labels(source="listener").observe(dt)
             if self.log_every and len(self.step_times) % self.log_every == 0:
                 log.info("step %d: %.3f ms", iteration, dt * 1e3)
         self._last = now

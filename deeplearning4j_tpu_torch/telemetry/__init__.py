@@ -14,11 +14,15 @@ process-global `MetricsRegistry`:
   (sampled from `torch.cuda.memory_stats()` on the card) and
   `dl4j_jit_programs{cache=}` (programs built a cache: bucket shapes run,
   CUDA graphs captured);
-- chaos: `dl4j_chaos_injected{point=,kind=}`.
-
-The training series of the JAX package (`dl4j_train_*`, the guardian's
-and the checkpoint writer's counters) are not emitted by the port yet
-(ROADMAP Queue 1 item 14).
+- chaos: `dl4j_chaos_injected{point=,kind=}`;
+- training: `dl4j_train_{steps,examples,epochs,loss}` and
+  `dl4j_train_step_seconds{source=fit|scan|listener}` (nn/multilayer.py,
+  optimize/listeners.py), `dl4j_listener_iterations`,
+  `dl4j_guardian_events{kind=}`, the checkpoint writer's `dl4j_ckpt_*`,
+  the device feed's `dl4j_feed_*`, and `dl4j_jit_programs{cache=
+  "train_step"|"predict_step"}`;
+- deployment: the controller's `dl4j_pipeline_*{pipeline=}` series
+  (deploy/controller.py).
 
 Export: `GET /metrics` (Prometheus text) and `GET /snapshot` (JSON) on
 the serving server or a standalone `exposition.start_metrics_server()`.

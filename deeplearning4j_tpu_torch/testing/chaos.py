@@ -445,10 +445,20 @@ def maybe_nan(point: str, arr, **ctx):
     """Numeric-fault site helper: returns `arr` NaN-poisoned (a copy)
     when a "nan" rule fires at `point`, else `arr` untouched. Only
     float arrays are poisoned — the guardian's non-finite defense is
-    the downstream consumer (docs/FAULT_TOLERANCE.md)."""
+    the downstream consumer (docs/FAULT_TOLERANCE.md). A torch tensor
+    is poisoned as a copy on its own device (the same elements as a
+    numpy array of its values), so a batch already on the card stays
+    there."""
     if (_active if _env_checked else active()) is None:
         return arr
     if hit(point, **ctx) != "nan":
+        return arr
+    if hasattr(arr, "is_floating_point") and hasattr(arr, "clone"):
+        if not arr.is_floating_point():
+            return arr
+        arr = arr.contiguous().clone()
+        flat = arr.view(-1)
+        flat[: max(1, flat.numel() // 8)] = float("nan")
         return arr
     import numpy as np
 
