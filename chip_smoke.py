@@ -3,6 +3,7 @@
 plain versions.
 
     python3 chip_smoke.py [--seed N] [--out chiprun_out/chip_smoke.json]
+    python3 chip_smoke.py --four-cards   # phase 19 (b) on 4 cards, NCCL
 
 Phases, each printing one JSON line (any failure exits non-zero and
 prints no result):
@@ -304,7 +305,8 @@ prints no result):
                   gate's classes against a float32 CPU gate (each
                   differing row a near-tie), dl4j_pipeline_* on the
                   status port, the trainer's /metrics (steps and
-                  commits) and trace, allocated memory back to its
+                  commits) and trace, live allocated memory (cyclic
+                  garbage collected before each reading) back to its
                   value before each gate and, after every cycle, before
                   the first, a journal left in CANARY by a dead owner
                   re-driven to the same verdict; (b) `cli pipeline
@@ -325,19 +327,70 @@ prints no result):
                   equals activate, a 5-beam 20-step beam search returns
                   sorted beams; ms a step by CUDA events, tokens/s,
                   kernels a step and busy share, ms a beam tick.
+19. parallel     — parallel/ and attention/ring.py. (a) World size 1 on
+                  NCCL in this process (multihost.initialize on a free
+                  local port, make_mesh({"data": 1})): BASELINE config 1
+                  (16 x 4096, 2 epochs) under DataParallelTrainer bit-equal
+                  to MultiLayerNetwork.fit through its DeviceFeed (else the
+                  largest difference, gated at the bf16 tolerance), ms a
+                  step against fit's by CUDA events; ShardedUpdateTrainer
+                  within 1e-5 of DP; ParameterAveragingTrainer(local_steps
+                  4) within 1e-5 of the same wave's steps run by hand (no
+                  batch count to the updater, as the JAX package's wave;
+                  fit() divides AdaGrad's step by the batch, so it is not
+                  the reference); a DP epoch under set_sync_debug_mode(
+                  "error"); the attention stack (bf16, 8 x 1024) under DP
+                  with K1, K2 and K3 once a step and its params bit-equal
+                  to fit's; a guarded DP run and a ZeRO-1 run autosaving
+                  through ShardedModelSaver(mesh=, strategy=) restore bit-
+                  equal (restore_params_for, restore_network,
+                  restore_flat_state). (b) PAR_RANKS (4) spawned ranks
+                  sharing the card (testing/ranks.py), each joining by
+                  multihost.initialize, every mesh gloo given explicitly
+                  (CUDA tensors staged through the host, bytes counted):
+                  ring_attention(local="flash") at the LM's attention shape
+                  (B 8, H 8, hd 128, T 1024, 256 positions a rank, bf16),
+                  causal and not, forward within 2^-7 + 2^-6 |ref| of one
+                  flash_attention over the whole sequence and of
+                  local="einsum" element by element, dQ / dK / dV within
+                  3e-2 of the largest |whole-sequence flash backward|
+                  value, K1 = K2 = K3 = 10 causal and 16 not over the
+                  ranks; config 1 under DP at 4 ranks (1,024 rows a rank)
+                  and TP on {"data": 2, "model": 2}, their params within
+                  0.05 of the training's own movement (||p - p_fit|| /
+                  ||p_fit - p0||) of one process's fit and of each other,
+                  while a fit on a quarter of every batch and no training
+                  lie beyond it, and TP's score within rtol 2e-3 of DP's;
+                  the pipeline (4 stages, d 1024, 8 microbatches of
+                  512) forward and one grad step, and the experts (E 4,
+                  d_in 1024, d_hidden 4096, 4,096 tokens) dense and a2a at
+                  capacity 4, within 1e-5 (float32, relative to the largest
+                  |reference| value) of sequential_apply / moe_reference,
+                  the a2a dropped-token count at capacity 1 equal to the
+                  ranks' own routing's. Each rank's host-staged bytes and
+                  the group's wall time (four processes time-slice one
+                  card: no speed is gated or called scaling); whether NCCL
+                  takes two ranks on one card (a spawned 2-rank probe,
+                  recorded, not gated). K1-K3 of (a)'s stack counted as the
+                  "parallel" path, the ring's as the "ring" path.
+                  `--four-cards` runs the build and (b) alone with one rank
+                  on each of 4 cards over NCCL, the meshes' default there,
+                  no byte staged through the host (gated).
 The phases 16-18 write under build/chip_smoke_cli/ and remove it; phase
 5f writes under build/chip_smoke_fleet/ and phase 17b under
-build/chip_smoke_pipeline/, each removing it.
+build/chip_smoke_pipeline/ and phase 19 under build/chip_smoke_parallel/,
+each removing it.
 
 Then, at each path's shapes: each kernel's time beside its plain
 version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3;
 the median of 3 separate batches, all three recorded) and its bound, one
 whole prefill, decode step and training step, each profiled; K1, K2 and
 K3 also at the attention stack's shape (B*H 1024, T 28, hd 128, not
-causal), and K1 at the model drafter's shape. The kernels' launches
-are counted per path, a captured graph's replays included (serve,
-serve_features, spec, draft, http, disagg, fleet, train, multilayer,
-solver, guardian, cli, pipeline).
+causal), K1 at the model drafter's shape, and K1, K2 and K3 at the
+ring's shard shape (B*H 64, T 256, hd 128, causal and not). The kernels'
+launches are counted per path, a captured graph's replays included
+(serve, serve_features, spec, draft, http, disagg, fleet, train,
+multilayer, solver, guardian, cli, pipeline, parallel, ring).
 The last lines are the card as nvidia-smi gives it, the kernels' JSON
 line (with each kernel's design), and
 {"ok": true, "device": {...}}.
@@ -347,6 +400,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import math
@@ -502,6 +556,15 @@ def count_params(tree) -> int:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max().item())
+
+
+def live_allocated(device) -> int:
+    """Device bytes held by live tensors. Unreachable reference cycles
+    are collected first: Python's cyclic collector runs whenever its
+    allocation counts say so, and one that runs between two readings
+    would otherwise free an earlier phase's garbage and move them."""
+    gc.collect()
+    return torch.cuda.memory_allocated(device)
 
 
 # ----------------------------------------------------------------- bounds
@@ -2883,43 +2946,52 @@ def multilayer_kernel_timing(device, timer, seed):
     hd 128, bf16, not causal) beside their plain version, bound and
     library call."""
     gen = torch.Generator().manual_seed(seed + 4)
+    return kernel_timing_at(device, timer, gen, ML_TRAIN["attention"][0], 1,
+                            28, 128, False, "the attention stack's shape")
+
+
+def kernel_timing_at(device, timer, gen, b, h, t, hd, causal, what):
+    """K1, K2 and K3 on (b, h, t, hd) bf16 inputs drawn from `gen`, at
+    Tq = Tk = t: each against its plain version (raises past TOL /
+    BWD_TOL), timed beside the plain version, its bound and the library
+    call (SDPA forward; SDPA's backward for K2 and K3)."""
     dt = torch.bfloat16
-    bh, t, hd = ML_TRAIN["attention"][0], 28, 128
-    q, k, v, do = (torch.randn(bh, 1, t, hd, generator=gen).to(device, dt)
+    bh = b * h
+    q, k, v, do = (torch.randn(b, h, t, hd, generator=gen).to(device, dt)
                    for _ in range(4))
     q3, k3, v3, do3 = (a.reshape(bh, t, hd) for a in (q, k, v, do))
-    out, lse = flash.flash_attention_with_lse(q3, k3, v3, False)
+    out, lse = flash.flash_attention_with_lse(q3, k3, v3, causal)
     dd = flash._delta(out, do3).contiguous()
-    args = (q3, k3, v3, out, lse, do3, False)
-    f_err = max_err(out, flash.flash_attention_ref(q3, k3, v3, False))
+    args = (q3, k3, v3, out, lse, do3, causal)
+    f_err = max_err(out, flash.flash_attention_ref(q3, k3, v3, causal))
     b_errs = rel_errs(flash._flash_backward(*args),
                       flash.flash_attention_bwd_ref(*args))
     if f_err > TOL[dt] or max(r for _, r in b_errs) > BWD_TOL[dt]:
-        raise AssertionError(f"flash kernels disagree at the attention "
-                             f"stack's shape: {f_err}, {b_errs}")
+        raise AssertionError(f"flash kernels disagree at {what}: "
+                             f"{f_err}, {b_errs}")
     shape = {"bh": bh, "t": t, "hd": hd, "dtype": "bfloat16",
-             "causal": False}
-    f_bound, f_by = bound_ms(*flash_work(bh, t, t, hd, False, dt), dt)
+             "causal": causal}
+    f_bound, f_by = bound_ms(*flash_work(bh, t, t, hd, causal, dt), dt)
     f_lib, _ = library_ms(timer, lambda: F.scaled_dot_product_attention(
-        q, k, v))
+        q, k, v, is_causal=causal))
     leaves = [a.detach().requires_grad_() for a in (q, k, v)]
-    sdpa_out = F.scaled_dot_product_attention(*leaves)
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     b_lib, _ = library_ms(timer, lambda: torch.autograd.grad(
         sdpa_out, leaves, do, retain_graph=True))
     b_plain = timer.ms(lambda: flash.flash_attention_bwd_ref(*args), iters=5)
     rows = {"flash_fwd": {
-        "ms": timer.ms(lambda: flash.flash_attention(q3, k3, v3, False)),
+        "ms": timer.ms(lambda: flash.flash_attention(q3, k3, v3, causal)),
         "plain_ms": timer.ms(lambda: flash.flash_attention_ref(
-            q3, k3, v3, False), iters=5),
+            q3, k3, v3, causal), iters=5),
         "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib,
         "max_abs_err": f_err, "shape": shape}}
     for name, fn, idx in (
-            ("dq", lambda: flash._launch_dq(q3, k3, v3, do3, lse, dd, False),
-             (0,)),
+            ("dq", lambda: flash._launch_dq(q3, k3, v3, do3, lse, dd,
+                                            causal), (0,)),
             ("dkv", lambda: flash._launch_dkv(q3, k3, v3, do3, lse, dd,
-                                              False), (1, 2))):
-        bound, by = bound_ms(*flash_bwd_work(name, bh, t, t, hd, False, dt),
-                             dt)
+                                              causal), (1, 2))):
+        bound, by = bound_ms(*flash_bwd_work(name, bh, t, t, hd, causal,
+                                             dt), dt)
         rows[f"flash_bwd_{name}"] = {
             "ms": timer.ms(fn), "plain_ms": b_plain,
             "plain_covers": "dQ, dK and dV together", "bound_ms": bound,
@@ -4315,9 +4387,10 @@ def phase_pipeline(device, seed):
         12 restored on the card, the gate's classes against a float32
         CPU gate (every differing row a near-tie), the status port's
         dl4j_pipeline_* counters, the trainer's /metrics (steps, commits)
-        and trace, each gate's allocated memory back to its value
-        before it and the process's after every cycle back to its value
-        before the first gate, telemetry's cost a step (syncs and
+        and trace, each gate's live allocated memory (cyclic garbage
+        collected before each reading) back to its value before it and
+        the process's after every cycle back to its value before the
+        first gate, telemetry's cost a step (syncs and
         params), and the crash drill: a journal left in CANARY by a dead
         owner, a second incarnation promotes the same step.
     (b) `python -m deeplearning4j_tpu_torch.cli pipeline --spawn-fleet`
@@ -4453,12 +4526,11 @@ def phase_pipeline(device, seed):
     evaluate = holdout.evaluate_checkpoint
 
     def measured(*args, **kwargs):
-        m0 = torch.cuda.memory_allocated(device)
+        m0 = live_allocated(device)
         try:
             return evaluate(*args, **kwargs)
         finally:
-            gates.append({"before": m0,
-                          "after": torch.cuda.memory_allocated(device)})
+            gates.append({"before": m0, "after": live_allocated(device)})
 
     ctrl = drill = None
     a = {}
@@ -4473,14 +4545,15 @@ def phase_pipeline(device, seed):
             state_dir=str(PIPE_DIR / "state"), name="smoke",
             status_port=0, device=device)
         holdout.evaluate_checkpoint = measured
-        mem0 = torch.cuda.memory_allocated(device)
+        garbage0, t0 = torch.cuda.memory_allocated(device), time.perf_counter()
+        mem0 = live_allocated(device)
+        a["collect_s"] = time.perf_counter() - t0
         serving_s = None
         for _ in range(4):
             t0 = time.perf_counter()
             res = ctrl.run_once()
             cycles.append({**res, "seconds": time.perf_counter() - t0,
-                           "memory_allocated":
-                               torch.cuda.memory_allocated(device)})
+                           "memory_allocated": live_allocated(device)})
             if res.get("promoted"):
                 if all(json.loads(http_get(h.url + "/readyz")[1])
                        .get("checkpoint") == want for h in handles):
@@ -4494,6 +4567,7 @@ def phase_pipeline(device, seed):
         a["commit_to_serving_s"] = serving_s
         a["gates"] = gates
         a["memory_allocated_before_first_gate"] = mem0
+        a["collected_before_first_gate"] = garbage0 - mem0
         cycles_ok = outcome == [
             {"action": "promote", "step": good + 2, "promoted": False,
              "rolled_back": True},
@@ -4913,15 +4987,609 @@ def kernel_functions(lib) -> dict:
     return funcs
 
 
+# ------------------------------------------------------------- parallel
+PAR_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_parallel"
+#: the 4-rank group of phase 19 (b): ranks, hard limit (s) of the group
+#: and of the NCCL probe
+PAR_RANKS, PAR_LIMIT, NCCL_PROBE_LIMIT = 4, 240.0, 60.0
+#: the ring at the 110M LM's attention shape: B, H, T, hd (bf16)
+RING_B, RING_H, RING_T, RING_HD = 8, 8, 1024, 128
+#: ring gates, bf16: the forward elementwise |out - ref| <= ATOL + RTOL
+#: |ref| (RTOL 2^-6 is two to four bf16 ulps of |ref|; ATOL 2^-7, two
+#: ulps of the unit-scale values a row averages, covers outputs near 0,
+#: where that average cancels), and dQ/dK/dV relative to the largest
+#: |reference| value
+RING_FWD_ATOL, RING_FWD_RTOL, RING_BWD_TOL = 2.0 ** -7, 2.0 ** -6, 3e-2
+#: |ref| bins the ring's forward error is also reported in
+RING_FWD_BINS = (0.0, 2.0 ** -4, 2.0 ** -2, 1.0, 2.0, 4.0)
+#: DP and TP at 4 ranks against one process, bf16 products: the params'
+#: distance ||p - p_ref|| over the training's own movement ||p_ref - p0||
+#: (AdaGrad's step is divided by the 4096-row batch, so the params move
+#: ~1e-4 each and an absolute tolerance cannot see a broken trainer)
+PAR_MOVE_TOL = 0.05
+#: pipeline and experts (float32 on the card): relative to the largest
+#: |reference| value (sums in another order, TF32 off)
+PAR_F32_TOL = 1e-5
+PIPE_STAGES, PIPE_D, PIPE_M, PIPE_B = 4, 1024, 8, 512
+MOE_E, MOE_D, MOE_H, MOE_N = 4, 1024, 4096, 4096
+
+
+def rel_err(a, b) -> float:
+    return max_err(a, b) / max(float(b.float().abs().max().item()), 1e-30)
+
+
+def ring_fwd_err(got, ref) -> dict:
+    """The ring's forward against a reference: the largest |got - ref|,
+    that over the gate's limit ATOL + RTOL |ref| (<= 1 passes), and the
+    largest |got - ref| in each |ref| bin of RING_FWD_BINS."""
+    got, ref = got.detach().float(), ref.detach().float()
+    err = (got - ref).abs()
+    mag = ref.abs()
+    by_bin = {}
+    for lo, hi in zip(RING_FWD_BINS, RING_FWD_BINS[1:] + (math.inf,)):
+        sel = (mag >= lo) & (mag < hi)
+        by_bin[f"[{lo:g},{hi:g})"] = (float(err[sel].max())
+                                      if bool(sel.any()) else None)
+    return {"max_abs_err": float(err.max()),
+            "worst_over_limit": float(
+                (err / (RING_FWD_ATOL + RING_FWD_RTOL * mag)).max()),
+            "max_abs_err_by_ref_bin": by_bin}
+
+
+def moved_rel(p, ref, p0) -> float:
+    """||p - ref|| / ||ref - p0||: how far `p` lies from the reference
+    training's end, in units of that training's own movement."""
+    p, ref, p0 = (np.asarray(a, np.float64) for a in (p, ref, p0))
+    return float(np.linalg.norm(p - ref) / np.linalg.norm(ref - p0))
+
+
+def par_world1_reference(device, seed):
+    """Config 1's params before and after 2 epochs of MultiLayerNetwork.
+    fit on the card (bit-equal to DataParallelTrainer at world size 1,
+    phase 19 (a)), and after 2 epochs on a quarter of every batch (rank
+    0's 1,024 rows): the reference of (b)'s DP and TP and a training the
+    gate must reject."""
+    batch, n_batches, x_np, y_np = mlp_batches(seed + 19)
+    net = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    p0 = net.params().cpu().numpy()
+    net.fit(ListDataSetIterator(DataSet(x_np, y_np), batch), epochs=2)
+    quarter = np.concatenate([np.arange(i * batch, i * batch + batch
+                                        // PAR_RANKS)
+                              for i in range(n_batches)])
+    net_q = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    net_q.fit(ListDataSetIterator(DataSet(x_np[quarter], y_np[quarter]),
+                                  batch // PAR_RANKS), epochs=2)
+    torch.cuda.synchronize()
+    return {"p0": p0, "world1": net.params().cpu().numpy(),
+            "quarter": net_q.params().cpu().numpy()}
+
+
+def par_dp_runs(device, seed, mesh):
+    """(a): BASELINE config 1 (784-2048-1024-10, bf16 products, AdaGrad
+    lr 0.05, 16 batches of 4096, 2 epochs) under DataParallelTrainer at
+    world size 1 on NCCL against MultiLayerNetwork.fit through its
+    DeviceFeed, ZeRO-1 against DP, averaging against the same wave run
+    by hand; ms a step by CUDA events; a DP epoch under sync-debug
+    "error"."""
+    from deeplearning4j_tpu_torch.optimize.updater import \
+        NetworkGradientUpdater
+    from deeplearning4j_tpu_torch.parallel import (DataParallelTrainer,
+                                                   ParameterAveragingTrainer,
+                                                   ShardedUpdateTrainer)
+
+    batch, n_batches, x_np, y_np = mlp_batches(seed + 19)
+    conf = mlp_conf("bfloat16")
+
+    def it():
+        return ListDataSetIterator(DataSet(x_np, y_np), batch)
+
+    def epochs_ms(fit_epoch, n):
+        out = []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fit_epoch()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end) / n_batches)
+        return out
+
+    net_fit, net_dp, net_z, net_a, net_h = (
+        MultiLayerNetwork(conf, device=device) for _ in range(5))
+    p0 = net_fit.params()
+    for net in (net_dp, net_z, net_a, net_h):
+        net.set_parameters(p0)
+    fit_ms = epochs_ms(lambda: net_fit.fit(it()), 2)
+    dp = DataParallelTrainer(net_dp, mesh)
+    dp_ms = epochs_ms(lambda: dp.fit(it()), 2)
+    dp_diff = bitwise_diff(net_dp, net_fit)
+    dp_diff.pop("iteration_count", None)  # the trainer keeps the net's
+    dp_max = max_err(net_dp.params(), net_fit.params())
+    ShardedUpdateTrainer(net_z, mesh).fit(it(), epochs=2)
+    z_err = max_err(net_z.params(), net_dp.params())
+    scores = {"fit": net_fit.score(x_np[:batch], y_np[:batch]),
+              "dp": net_dp.score(x_np[:batch], y_np[:batch])}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dp.fit(it())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # averaging: K = 4 local steps per wave, no batch count to the
+    # updater (the JAX package's wave); at world 1 the pmean is the
+    # identity, so the same steps by hand are its reference
+    ParameterAveragingTrainer(net_a, mesh, local_steps=4).fit(it())
+    upd = NetworkGradientUpdater.for_network(net_h)
+    state = upd.init(net_h.param_table)
+    x_dev = torch.from_numpy(x_np).to(device)
+    y_dev = torch.from_numpy(y_np).to(device)
+    for i in range(n_batches):
+        params = net_h.param_table
+        leaves = [p for t in params.values() for p in t.values()]
+        loss = net_h.loss_fn(params, x_dev[i * batch:(i + 1) * batch],
+                             y_dev[i * batch:(i + 1) * batch], training=True)
+        g = iter(torch.autograd.grad(loss, leaves))
+        grads = {k: {n: next(g) for n in t} for k, t in params.items()}
+        with torch.no_grad():
+            updates, state = upd.update(grads, state, params)
+            for p, u in zip(leaves, [u for t in updates.values()
+                                     for u in t.values()]):
+                p.sub_(u)
+    avg_err = max_err(net_a.params(), net_h.params())
+    finite = all(bool(torch.isfinite(n.params()).all())
+                 for n in (net_dp, net_z, net_a))
+    bit_equal = not dp_diff
+    ok = ((bit_equal or dp_max <= TOL[torch.bfloat16]) and z_err <= 1e-5
+          and avg_err <= 1e-5 and finite)
+    return {"batch": batch, "batches": n_batches, "epochs": 2,
+            "dp_bit_equal_to_fit": bit_equal, "dp_diff_leaves": dp_diff,
+            "dp_max_abs_diff_to_fit": dp_max,
+            "zero1_max_abs_err_to_dp": z_err,
+            "averaging_max_abs_err_to_same_wave": avg_err,
+            "averaging_reference": "the wave's steps by hand (no batch "
+            "count to the updater, as the JAX package's wave); fit() "
+            "divides AdaGrad's step by the batch and is not its reference",
+            "fit_ms_per_step": fit_ms, "dp_ms_per_step": dp_ms,
+            "dp_over_fit": dp_ms[-1] / fit_ms[-1],
+            "no_host_sync_in_dp_epoch": True,
+            "score_after_2_epochs": scores,
+            "params": p0.numel(), "ok": ok}
+
+
+def par_attention(device, seed, mesh):
+    """(a): the attention stack (bf16, batch 1024, 8 batches) under
+    DataParallelTrainer: K1, K2 and K3 once a step, the params bit-equal
+    to fit's."""
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer
+
+    batch, n_batches, _ = ML_TRAIN["attention"]
+    x_np, y_np = synthetic_mnist(batch * n_batches, seed=seed + 20)
+    conf = attention_conf("bfloat16")
+    net_fit, net_dp = (MultiLayerNetwork(conf, device=device)
+                       for _ in range(2))
+    net_dp.set_parameters(net_fit.params())
+    net_fit.fit(ListDataSetIterator(DataSet(x_np, y_np), batch))
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    DataParallelTrainer(net_dp, mesh).fit(
+        ListDataSetIterator(DataSet(x_np, y_np), batch))
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    diff = bitwise_diff(net_dp, net_fit)
+    diff.pop("iteration_count", None)
+    want = {k: n_batches for k in launches}
+    return {"batch": batch, "steps": n_batches, "launches": launches,
+            "launches_expected": want, "bit_equal_to_fit": not diff,
+            "max_abs_diff_to_fit": max_err(net_dp.params(),
+                                           net_fit.params()),
+            "ok": launches == want and not diff}
+
+
+def par_checkpoint(device, seed, mesh):
+    """(a): a guarded DP run autosaving through ShardedModelSaver(mesh=,
+    strategy="dp") and a ZeRO-1 autosave restore bit-equal
+    (restore_params_for, restore_network, restore_flat_state)."""
+    from deeplearning4j_tpu_torch.checkpoint import (ShardedModelSaver,
+                                                     restore_network,
+                                                     restore_params_for)
+    from deeplearning4j_tpu_torch.optimize.guardian import GuardianPolicy
+    from deeplearning4j_tpu_torch.parallel import (DataParallelTrainer,
+                                                   ShardedUpdateTrainer)
+    from deeplearning4j_tpu_torch.parallel.mesh import replicated
+
+    batch, n_batches, x_np, y_np = mlp_batches(seed + 21)
+    conf = mlp_conf("bfloat16")
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    out = {}
+    try:
+        net = MultiLayerNetwork(conf, device=device)
+        root = str(PAR_DIR / "dp")
+        with ShardedModelSaver(root, mesh=mesh, strategy="dp") as saver:
+            DataParallelTrainer(net, mesh).fit(
+                ListDataSetIterator(DataSet(x_np, y_np), batch),
+                guardian=GuardianPolicy(check_every=4),
+                checkpoint_every=n_batches, saver=saver)
+        placed = restore_params_for(root, replicated(mesh))
+        restored, info = restore_network(root, device=device)
+        out["dp"] = {
+            "params_diff": tree_diff(placed, net.param_table),
+            "state_diff": bitwise_diff(restored, net),
+            "position": info["iterator_position"], "mesh": info["mesh"]}
+        out["dp"]["state_diff"].pop("iteration_count", None)
+        net = MultiLayerNetwork(conf, device=device)
+        root = str(PAR_DIR / "zero1")
+        tr = ShardedUpdateTrainer(net, mesh)
+        with ShardedModelSaver(root, mesh=mesh, strategy="zero1") as saver:
+            tr.fit(ListDataSetIterator(DataSet(x_np, y_np), batch),
+                   checkpoint_every=n_batches, saver=saver)
+        restored, info = restore_network(root, device=device)
+        tr2 = ShardedUpdateTrainer(restored, mesh)
+        tr2.restore_flat_state(info["metadata"])
+        flat_equal = all(torch.equal(a, b) for a, b in
+                         zip(tr._flat_state, tr2._flat_state))
+        out["zero1"] = {"params_diff": tree_diff(restored.param_table,
+                                                 net.param_table),
+                        "flat_state_bit_equal": flat_equal,
+                        "position": info["iterator_position"],
+                        "mesh": info["mesh"]}
+    finally:
+        shutil.rmtree(PAR_DIR, ignore_errors=True)
+    out["ok"] = (not out["dp"]["params_diff"] and not out["dp"]["state_diff"]
+                 and out["dp"]["position"] == n_batches
+                 and not out["zero1"]["params_diff"]
+                 and out["zero1"]["flat_state_bit_equal"]
+                 and out["zero1"]["position"] == n_batches)
+    return out
+
+
+def ring_rank_checks(device, backend, seed):
+    """(b), one rank: ring_attention(local="flash") on this rank's 256
+    positions of the LM's attention shape, causal and not, forward and
+    backward; its K1-K3 launches; against one flash_attention over the
+    whole sequence (forward and backward) and the einsum ring."""
+    from deeplearning4j_tpu_torch.attention.ring import ring_attention
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"sp": PAR_RANKS}, device=device, backend=backend)
+    i, tl = mesh.axis_index("sp"), RING_T // PAR_RANKS
+    gen = torch.Generator().manual_seed(seed + 22)
+    q, k, v, do = (torch.randn(RING_B, RING_H, RING_T, RING_HD,
+                               generator=gen).to(device, torch.bfloat16)
+                   for _ in range(4))
+    sl = slice(i * tl, (i + 1) * tl)
+    out = {}
+    for causal in (True, False):
+        shards = [a[:, :, sl].contiguous().requires_grad_()
+                  for a in (q, k, v)]
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        ring = ring_attention(*shards, mesh, axis="sp", causal=causal,
+                              local="flash")
+        ring.backward(do[:, :, sl].contiguous())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = flash_counts()
+        full = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+        ref = flash.flash_attention(*full, causal)
+        ref.backward(do)
+        with torch.no_grad():
+            einsum = ring_attention(*(s.detach() for s in shards), mesh,
+                                    axis="sp", causal=causal,
+                                    local="einsum")
+        out["causal" if causal else "not_causal"] = {
+            "launches": launches, "fwd_bwd_ms": ms,
+            "fwd_err_to_whole_flash": ring_fwd_err(ring, ref[:, :, sl]),
+            "fwd_err_to_einsum_ring": ring_fwd_err(ring, einsum),
+            "grad_rel_err_to_whole_flash": [
+                rel_err(s.grad, f.grad[:, :, sl])
+                for s, f in zip(shards, full)]}
+    return out
+
+
+def par_train_rank(device, backend, seed, trainer, axes):
+    """(b), one rank: BASELINE config 1 trained 2 epochs by `trainer` on
+    the mesh `axes` (rank 0 returns the params and the score)."""
+    from deeplearning4j_tpu_torch import parallel
+
+    batch, n_batches, x_np, y_np = mlp_batches(seed + 19)
+    mesh = parallel.make_mesh(axes, device=device, backend=backend)
+    net = MultiLayerNetwork(mlp_conf("bfloat16"), device=device)
+    cls = getattr(parallel, trainer)
+    t0 = time.perf_counter()
+    cls(net, mesh).fit(ListDataSetIterator(DataSet(x_np, y_np), batch),
+                       epochs=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    score = net.score(x_np[:batch], y_np[:batch])
+    return {"params": net.params().cpu().numpy() if mesh.rank == 0 else None,
+            "score": score, "wall_s": wall}
+
+
+def pipeline_rank_checks(device, backend, seed):
+    """(b), one rank: 4 stages of d 1024, 8 microbatches of 512:
+    pipeline_apply and one pipeline_grad_step against sequential_apply
+    and its autograd step (float32)."""
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel import pipeline as pipe
+
+    mesh = make_mesh({"pipe": PIPE_STAGES}, device=device, backend=backend)
+    gen = torch.Generator().manual_seed(seed + 23)
+    params = pipe.init_pipeline_params(gen, PIPE_STAGES, PIPE_D,
+                                       device=device)
+    xm, ym = (torch.randn(PIPE_M, PIPE_B, PIPE_D, generator=gen).to(device)
+              for _ in range(2))
+    t0 = time.perf_counter()
+    out = pipe.pipeline_apply(params, xm, mesh)
+    new, loss = pipe.pipeline_grad_step(params, xm, ym, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    seq = torch.stack([pipe.sequential_apply(p, xm[j])
+                       for j in range(PIPE_M)])
+    ref_loss = torch.mean((seq - ym) ** 2)
+    grads = torch.autograd.grad(ref_loss, [p["W"], p["b"]])
+    ref = {n: params[n] - 0.1 * g for n, g in zip(("W", "b"), grads)}
+    ref_loss = float(ref_loss.detach())
+    return {"fwd_rel_err": rel_err(out, seq.detach()),
+            "loss_rel_err": abs(float(loss) - ref_loss) / abs(ref_loss),
+            "param_rel_err": max(rel_err(new[n], ref[n]) for n in ref),
+            "wall_s": wall}
+
+
+def experts_rank_checks(device, backend, seed):
+    """(b), one rank: E 4, d_in 1024, d_hidden 4096, 4096 tokens: dense
+    moe_apply and moe_apply_a2a at capacity 4 against moe_reference; at
+    capacity 1 the dropped count against this rank's own routing."""
+    from deeplearning4j_tpu_torch.parallel import expert_parallel as ep
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"expert": PAR_RANKS}, device=device,
+                     backend=backend)
+    gen = torch.Generator().manual_seed(seed + 24)
+    params = ep.init_moe_params(gen, MOE_E, MOE_D, MOE_H, device=device)
+    x = torch.randn(MOE_N, MOE_D, generator=gen).to(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = ep.moe_reference(params, x)
+        dense = ep.moe_apply(params, x, mesh)
+        a2a, dropped4 = ep.moe_apply_a2a(params, x, mesh, capacity_factor=4.0,
+                                         return_stats=True)
+        _, dropped1 = ep.moe_apply_a2a(params, x, mesh, capacity_factor=1.0,
+                                       return_stats=True)
+        n_loc = MOE_N // PAR_RANKS
+        cap = max(1, int(-(-1.0 * n_loc // MOE_E)))
+        i = mesh.axis_index("expert")
+        choice = torch.argmax(x[i * n_loc:(i + 1) * n_loc] @ params["gate"],
+                              dim=-1)
+        mine = int(torch.clamp_min(torch.bincount(choice, minlength=MOE_E)
+                                   - cap, 0).sum())
+    torch.cuda.synchronize()
+    return {"dense_rel_err": rel_err(dense, ref),
+            "a2a_rel_err": rel_err(a2a, ref), "dropped_cf4": int(dropped4),
+            "dropped_cf1": int(dropped1), "my_dropped_cf1": mine,
+            "wall_s": time.perf_counter() - t0}
+
+
+def parallel_rank(rank, seed, per_card):
+    """Phase 19 (b): one of PAR_RANKS spawned ranks, either sharing card 0
+    over gloo or on card `rank` over NCCL, the meshes' default there (the
+    kernel library was built by the parent before the ranks started, so
+    each rank only loads it)."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+
+    device = torch.device("cuda", rank if per_card else 0)
+    backend = None if per_card else "gloo"
+    torch.cuda.set_device(device)
+    _build.library()
+    out = {"ring": ring_rank_checks(device, backend, seed)}
+    out["dp"] = par_train_rank(device, backend, seed, "DataParallelTrainer",
+                               {"data": PAR_RANKS})
+    out["tp"] = par_train_rank(device, backend, seed,
+                               "TensorParallelTrainer",
+                               {"data": 2, "model": 2})
+    out["pipeline"] = pipeline_rank_checks(device, backend, seed)
+    out["experts"] = experts_rank_checks(device, backend, seed)
+    out["host_staged_bytes"] = collectives.host_staged_bytes
+    return out
+
+
+def nccl_probe_rank(rank):
+    """Whether NCCL takes two ranks of one communicator on one card."""
+    from deeplearning4j_tpu_torch.parallel import collectives, make_mesh
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh({"data": 2}, device=torch.device("cuda", 0),
+                     backend="nccl")
+    t = torch.ones(4, device="cuda")
+    collectives.all_reduce_(t, mesh, "data")
+    return float(t[0].item())
+
+
+def ring_kernel_timing(device, timer, seed):
+    """K1, K2 and K3 at the ring's shard shape (B*H 64, Tq = Tk = 256,
+    hd 128, bf16), causal (the diagonal shard) and not (a past shard)."""
+    gen = torch.Generator().manual_seed(seed + 25)
+    rows = {}
+    for causal in (True, False):
+        for name, row in kernel_timing_at(
+                device, timer, gen, RING_B, RING_H, RING_T // PAR_RANKS,
+                RING_HD, causal, "the ring's shard shape").items():
+            rows.setdefault(name, {})[
+                "causal" if causal else "not_causal"] = row
+    return rows
+
+
+def phase_parallel(device, seed):
+    """Phase 19; see the module docstring."""
+    from deeplearning4j_tpu_torch.parallel import make_mesh, multihost
+    from deeplearning4j_tpu_torch.testing.ranks import free_port
+
+    out = {}
+    # (a) world size 1 on NCCL, in this process
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, timeout=60)
+    try:
+        mesh = make_mesh({"data": 1}, device=device)
+        out["mesh"] = {"axes": mesh.shape, "backend": mesh.backend}
+        out["config1"] = par_dp_runs(device, seed, mesh)
+        out["attention"] = par_attention(device, seed, mesh)
+        out["checkpoint"] = par_checkpoint(device, seed, mesh)
+    finally:
+        multihost.shutdown()
+    out["ranks"] = par_ranks(device, seed, per_card=False)
+    out["ok"] = (out["config1"]["ok"] and out["attention"]["ok"]
+                 and out["checkpoint"]["ok"] and out["ranks"]["ok"])
+    return out
+
+
+def par_ranks(device, seed, per_card):
+    """Phase 19 (b): PAR_RANKS spawned ranks, sharing the card over gloo
+    or one a card over NCCL (`per_card`), against the whole-sequence
+    flash, the einsum ring, one process's fit, sequential_apply and
+    moe_reference."""
+    from deeplearning4j_tpu_torch.testing.ranks import RankError, run_ranks
+
+    ref = par_world1_reference(device, seed)
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, PAR_RANKS, seed, per_card,
+                      start="spawn", timeout=PAR_LIMIT)
+    group_s = time.perf_counter() - t0
+    ring = {}
+    for mode in ("causal", "not_causal"):
+        rows = [r["ring"][mode] for r in ranks]
+        ring[mode] = {
+            "launches": {k: sum(r["launches"][k] for r in rows)
+                         for k in rows[0]["launches"]},
+            "launches_by_rank": [r["launches"] for r in rows],
+            **{to: {"max_abs_err": max(r[to]["max_abs_err"] for r in rows),
+                    "worst_over_limit": max(r[to]["worst_over_limit"]
+                                            for r in rows),
+                    "max_abs_err_by_ref_bin": {
+                        b: max((r[to]["max_abs_err_by_ref_bin"][b]
+                                for r in rows if r[to][
+                                    "max_abs_err_by_ref_bin"][b] is not None),
+                               default=None)
+                        for b in rows[0][to]["max_abs_err_by_ref_bin"]}}
+               for to in ("fwd_err_to_whole_flash",
+                          "fwd_err_to_einsum_ring")},
+            "grad_rel_err_to_whole_flash": max(
+                max(r["grad_rel_err_to_whole_flash"]) for r in rows),
+            "fwd_bwd_ms_by_rank": [r["fwd_bwd_ms"] for r in rows]}
+    want = {"causal": PAR_RANKS * (PAR_RANKS + 1) // 2,
+            "not_causal": PAR_RANKS * PAR_RANKS}
+    dp4, tp = ranks[0]["dp"]["params"], ranks[0]["tp"]["params"]
+    moved = {"dp_to_world1": moved_rel(dp4, ref["world1"], ref["p0"]),
+             "tp_to_world1": moved_rel(tp, ref["world1"], ref["p0"]),
+             "tp_to_dp": moved_rel(tp, dp4, ref["p0"]),
+             "control_quarter_batch": moved_rel(ref["quarter"],
+                                                ref["world1"], ref["p0"]),
+             "control_untrained": moved_rel(ref["p0"], ref["world1"],
+                                            ref["p0"])}
+    tp_rel = abs(ranks[0]["tp"]["score"] - ranks[0]["dp"]["score"]) / abs(
+        ranks[0]["dp"]["score"])
+    pipe = {k: max(r["pipeline"][k] for r in ranks)
+            for k in ("fwd_rel_err", "loss_rel_err", "param_rel_err")}
+    experts = {k: max(r["experts"][k] for r in ranks)
+               for k in ("dense_rel_err", "a2a_rel_err")}
+    experts["dropped_cf4"] = ranks[0]["experts"]["dropped_cf4"]
+    experts["dropped_cf1"] = ranks[0]["experts"]["dropped_cf1"]
+    experts["dropped_cf1_expected"] = sum(r["experts"]["my_dropped_cf1"]
+                                         for r in ranks)
+    staged = [r["host_staged_bytes"] for r in ranks]
+    b = {
+        "n": PAR_RANKS, "start": "spawn",
+        "backend": "nccl, one rank a card" if per_card
+        else "gloo, the ranks sharing card 0",
+        "group_wall_s": group_s, "host_staged_bytes_by_rank": staged,
+        "ring": ring, "ring_launches_expected": want,
+        "ring_fwd_limit": f"|out - ref| <= {RING_FWD_ATOL:g} + "
+                          f"{RING_FWD_RTOL:g} |ref|",
+        "params_moved_rel": moved, "params_moved_rel_tol": PAR_MOVE_TOL,
+        "dp": {"max_abs_err_to_world1": float(
+                   np.abs(dp4 - ref["world1"]).max()),
+               "max_abs_movement": float(
+                   np.abs(ref["world1"] - ref["p0"]).max()),
+               "score": ranks[0]["dp"]["score"],
+               "wall_s_by_rank": [r["dp"]["wall_s"] for r in ranks]},
+        "tp": {"score": ranks[0]["tp"]["score"], "score_rel_err_to_dp":
+               tp_rel, "wall_s_by_rank": [r["tp"]["wall_s"]
+                                          for r in ranks]},
+        "pipeline": pipe, "experts": experts,
+        "timing_note": "one rank a card" if per_card else
+        "four processes time-slice one card: no speed here is gated or "
+        "a scaling figure"}
+    if not per_card:  # does NCCL take two ranks of one communicator?
+        try:
+            run_ranks(nccl_probe_rank, 2, start="spawn",
+                      timeout=NCCL_PROBE_LIMIT)
+            probe = {"accepted": True}
+        except RankError as e:
+            lines = [ln for ln in str(e).splitlines() if ln.strip()]
+            probe = {"accepted": False, "error": lines[-1][:300]}
+        b["nccl_two_ranks_one_card"] = probe
+    b["ok"] = (all(ring[m]["launches"] == {k: want[m] for k in
+                                           ring[m]["launches"]}
+                   for m in ring)
+               and all(ring[m][to]["worst_over_limit"] <= 1.0 for m in ring
+                       for to in ("fwd_err_to_whole_flash",
+                                  "fwd_err_to_einsum_ring"))
+               and all(ring[m]["grad_rel_err_to_whole_flash"]
+                       <= RING_BWD_TOL for m in ring)
+               and max(moved["dp_to_world1"], moved["tp_to_world1"],
+                       moved["tp_to_dp"]) <= PAR_MOVE_TOL
+               and min(moved["control_quarter_batch"],
+                       moved["control_untrained"]) > PAR_MOVE_TOL
+               and tp_rel <= 2e-3
+               and max(pipe.values()) <= PAR_F32_TOL
+               and max(experts["dense_rel_err"],
+                       experts["a2a_rel_err"]) <= PAR_F32_TOL
+               and experts["dropped_cf4"] == 0
+               and experts["dropped_cf1"] == experts["dropped_cf1_expected"]
+               and (not per_card or not any(staged)))
+    return b
+
+
+def main_four_cards(seed) -> int:
+    """`--four-cards`: the build and phase 19 (b) alone, one rank a card
+    over NCCL."""
+    device = torch.device("cuda", 0)
+    if torch.cuda.device_count() < PAR_RANKS:
+        print(f"chip_smoke: --four-cards needs {PAR_RANKS} cards, have "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    emit({"phase": "env", "nvidia_smi": nvidia_smi(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device_count": torch.cuda.device_count()})
+    t0 = time.perf_counter()
+    _build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    res = par_ranks(device, seed, per_card=True)
+    res["seconds"] = time.perf_counter() - t0
+    emit({"phase": "parallel_ranks", **res})
+    if not res["ok"]:
+        raise AssertionError(f"phase 19 (b) failed: {res}")
+    print(nvidia_smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every phase's record to this JSON file")
+    ap.add_argument("--four-cards", action="store_true",
+                    help="run only the build and phase 19 (b), one rank on "
+                    f"each of {PAR_RANKS} cards over NCCL")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.four_cards:
+        return main_four_cards(args.seed)
     device = torch.device("cuda", 0)
     record = {}
     t_start = time.perf_counter()
@@ -5064,6 +5732,17 @@ def main(argv=None) -> int:
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     shutil.rmtree(CLI_DIR, ignore_errors=True)
 
+    t0 = time.perf_counter()
+    par = phase_parallel(device, args.seed)
+    par["seconds"] = time.perf_counter() - t0
+    emit({"phase": "parallel", **par})
+    record["parallel"] = par
+    if not par["ok"]:
+        raise AssertionError(f"parallel failed: {par}")
+    t0 = time.perf_counter()
+    ring_shape = ring_kernel_timing(device, timer, args.seed)
+    par["kernel_timing_seconds"] = time.perf_counter() - t0
+
     k1, k4 = kernels
     sf = record["serve_features"]["launches_by_path"]
     k1["draft_shape"] = \
@@ -5098,10 +5777,18 @@ def main(argv=None) -> int:
             record["cli"]["launches"][row["name"]]
         row["launches_by_path"]["pipeline"] = \
             record["pipeline"]["launches"][row["name"]]
+        row["launches_by_path"]["parallel"] = \
+            par["attention"]["launches"][row["name"]]
+        row["launches_by_path"]["ring"] = sum(
+            par["ranks"]["ring"][m]["launches"][row["name"]]
+            for m in ("causal", "not_causal"))
         row["launches"] = sum(row["launches_by_path"].values())
         row["multilayer_shape"] = ml_shape[row["name"]]
+        row["ring_shape"] = ring_shape[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"],
-                                 ml_shape[row["name"]]["max_abs_err"])
+                                 ml_shape[row["name"]]["max_abs_err"],
+                                 *(r["max_abs_err"] for r in
+                                   ring_shape[row["name"]].values()))
     kernels = [k1, *bwd_rows, k4]
     emit({"phase": "main_path_steps", **steps})
     record["main_path_steps"] = steps

@@ -8,8 +8,8 @@ the packages both ways (docs/CHECKPOINTS.md describes the format).
 
 The writer publishes the `dl4j_ckpt_*` telemetry series, and the
 format carries the `checkpoint.write` / `checkpoint.rename` chaos
-points. Held back: `restore_params_for` (target shardings, ROADMAP
-Queue 1 item 12) raises.
+points. `restore_params_for` places a step's params under a target
+placement of the parallel trainers (each rank its slice).
 """
 
 from deeplearning4j_tpu_torch.checkpoint.format import (  # noqa: F401

@@ -3,10 +3,10 @@ JAX package's `checkpoint/convert.py`.
 
 Checkpoints store optimizer state in one canonical form, the per-layer
 ``{layer: UpdaterState(hist, velocity, iteration)}`` tree mirroring the
-parameter table. A trainer that keeps FLAT vectors instead (the JAX
-package's ZeRO-1 trainer; the port's parallel trainers are ROADMAP
-Queue 1 item 12) converts here: pure host reshapes, no arithmetic, so a
-conversion is bit-exact both ways.
+parameter table. A trainer that keeps FLAT vectors instead (the ZeRO-1
+trainer, `parallel/sharded_update.py`, of either package) converts
+here: pure host reshapes, no arithmetic, so a conversion is bit-exact
+both ways.
 
 The flat order is `ravel_table`'s (optimize/solvers.py), which is the
 JAX package's `ravel_pytree` order: sorted string keys at every level,

@@ -8,9 +8,10 @@ array (crc-verified, coverage-checked, errors naming the leaf), and
 conf, the params table, the canonical updater state and the cursor, so
 a step written by either package restores in the port.
 
-Placing the restored arrays under a TARGET sharding
-(`restore_params_for`) waits for the port's parallel trainers (ROADMAP
-Queue 1 item 12) and raises.
+`restore_params_for` restores just the params tree placed under a
+target placement (`parallel.mesh.Placement`, one for every leaf or a
+tree of them): each rank gets its slice of a split leaf, a replicated
+leaf whole, on the mesh's device.
 """
 
 from __future__ import annotations
@@ -146,12 +147,32 @@ def restore_network(path: str, step: Optional[int] = None, device=None):
 
 
 def restore_params_for(path: str, shardings, step: Optional[int] = None):
-    """Restore the params placed under target `shardings`: waits for the
-    port's parallel trainers (ROADMAP Queue 1 item 12)."""
-    raise NotImplementedError(
-        "restore_params_for (placing a checkpoint under target shardings) "
-        "is not ported yet: ROADMAP Queue 1 item 12 (parallel/); use "
-        "restore_network or load_payload_tree")
+    """Restore just the params tree, placed under `shardings`: one
+    `Placement` applied to every leaf, or a tree of placements matching
+    the params tree (the TP trainer's `_param_specs`, each spec wrapped
+    in a Placement). This rank gets its slice of each split leaf and a
+    replicated leaf whole, as tensors on the placement's mesh device.
+    The explicit resharding entry point; the trainers slice for
+    themselves."""
+    from deeplearning4j_tpu_torch.parallel.mesh import Placement
+
+    payload, _ = load_payload_tree(path, step)
+    params = payload["params"]
+
+    def place(a, placement):
+        t = torch.as_tensor(np.asarray(a)) if not isinstance(
+            a, torch.Tensor) else a
+        return placement.local(t).contiguous().to(placement.mesh.device)
+
+    if isinstance(shardings, Placement):
+        return map_arrays(lambda a: place(a, shardings), params)
+
+    def walk(tree, specs):
+        if isinstance(tree, dict):
+            return {k: walk(v, specs[k]) for k, v in tree.items()}
+        return place(tree, specs)
+
+    return walk(params, shardings)
 
 
 def _flatten(tree, prefix=()) -> List[Tuple[str, Any]]:

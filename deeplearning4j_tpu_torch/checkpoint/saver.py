@@ -14,8 +14,10 @@ auto-incrementing counter. A preemption flush (`metadata["save_kind"]
 == "preempt"`) is written synchronously: `save()` returns once the
 marker is in place, since the process is about to die.
 
-The JAX package's `sync=`, `mesh=` and `strategy=` serve its sharded
-trainers and wait with them (ROADMAP Queue 1 item 12).
+`sync=True` writes every save synchronously; `mesh=` and `strategy=`
+(e.g. "zero1", "dp", "tp") record the saving topology in the manifest's
+`mesh`, which `cli checkpoint inspect` reports. Under the parallel
+trainers one rank writes (`parallel/data_parallel.py`).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import time
 from typing import Any, Dict, Optional
 
 from deeplearning4j_tpu_torch.checkpoint import format as ckfmt
-from deeplearning4j_tpu_torch.checkpoint.writer import AsyncCheckpointWriter
+from deeplearning4j_tpu_torch.checkpoint.writer import (AsyncCheckpointWriter,
+                                                       mesh_spec_of)
 from deeplearning4j_tpu_torch.scaleout.checkpoint import ModelSaver
 
 __all__ = ["ShardedModelSaver", "SHARDED_FORMAT_VERSION",
@@ -37,10 +40,13 @@ SHARDED_FORMAT_VERSION = 3
 
 class ShardedModelSaver(ModelSaver):
     def __init__(self, directory: str, *, keep: int = 3,
-                 max_in_flight: int = 2):
+                 max_in_flight: int = 2, sync: bool = False,
+                 mesh=None, strategy: Optional[str] = None):
         self.directory = directory
         self.writer = AsyncCheckpointWriter(directory, keep=keep,
-                                            max_in_flight=max_in_flight)
+                                            max_in_flight=max_in_flight,
+                                            sync=sync)
+        self._mesh_spec = mesh_spec_of(mesh, strategy)
 
     # ----------------------------------------------------------- lifecycle
     def flush(self, timeout: Optional[float] = None) -> None:
@@ -75,7 +81,8 @@ class ShardedModelSaver(ModelSaver):
             "metadata": meta,
             "saved_at": time.time(),
         }
-        return self.writer.save(payload, step=step, wait=wait)
+        return self.writer.save(payload, step=step,
+                                mesh_spec=self._mesh_spec, wait=wait)
 
     def save(self, network, *, iterator_position: Optional[int] = None,
              metadata: Optional[Dict[str, Any]] = None,

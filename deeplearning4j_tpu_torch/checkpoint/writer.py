@@ -185,8 +185,8 @@ def mesh_spec_of(mesh=None, strategy: Optional[str] = None
                  ) -> Optional[dict]:
     """JSON-able record of the SOURCE topology, informational only:
     restore never needs it. `mesh` is any object with `axis_names` and a
-    `devices` array (the JAX package's Mesh); the port's own trainers
-    run on one device, so it is usually None."""
+    `devices` array (the port's `parallel.mesh.Mesh`, whose devices are
+    ranks); `checkpoint inspect` reads it back."""
     spec: Dict[str, Any] = {}
     if mesh is not None:
         spec["axes"] = {name: int(size)
@@ -207,9 +207,13 @@ class AsyncCheckpointWriter:
     committed directory. A worker failure is (a) set on that save's
     Future and (b) re-raised from the NEXT save()/flush()/close() call,
     so a fit loop cannot silently train past a dead checkpoint stream.
+
+    `sync=True` makes every save wait for its commit (as `wait=True`
+    does for one save).
     """
 
-    def __init__(self, root: str, *, keep: int = 3, max_in_flight: int = 2):
+    def __init__(self, root: str, *, keep: int = 3, max_in_flight: int = 2,
+                 sync: bool = False):
         if max_in_flight < 1:
             raise ValueError(
                 f"max_in_flight must be >= 1, got {max_in_flight}")
@@ -218,6 +222,7 @@ class AsyncCheckpointWriter:
         self.root = root
         self.keep = keep
         self.max_in_flight = max_in_flight
+        self.sync = sync
         os.makedirs(root, exist_ok=True)
         self._queue: "queue.Queue" = queue.Queue()  # bounded by the slots
         self._pool = _PinnedPool()
@@ -276,7 +281,7 @@ class AsyncCheckpointWriter:
         _M_IN_FLIGHT.inc()
         self._queue.put((int(step), host, event, copies.buffers, mesh_spec,
                          fut, record))
-        if wait:
+        if wait or self.sync:
             return fut.result()
         return os.path.join(self.root, ckfmt.step_dir_name(step))
 

@@ -14,7 +14,16 @@ copies, the counterpart of the JAX package's `datasets/device_feed.py`.
    and copied with `non_blocking=True`, so the copy runs on the copy
    engine while the current step computes (PyTorch's caching host
    allocator keeps a pinned buffer until its copy has finished).
-3. **Resume.** `cursor` counts the batches handed out in the current
+3. **Per-rank feeding.** `sharding=` (a placement from
+   `parallel.mesh.batch_sharding`) makes the feed yield only this rank's
+   rows of each global batch: the batch is padded to its bucket on the
+   host, sliced, and only the slice is copied. `align=` rounds every
+   bucket up to a multiple of the data-axis size, so the slices are
+   equal. `n_valid` stays the GLOBAL real-row count; padding sits at the
+   tail of the global batch, so it lands on the last ranks, and a
+   trainer computes its mask from global row indices
+   (`feed_mask(..., offset=)`).
+4. **Resume.** `cursor` counts the batches handed out in the current
    pass; `fast_forward(n)` drops the first `n` source batches of the
    next pass without padding or copying them, so a resumed run starts
    at a checkpoint's within-epoch cursor (the guardian's `epoch_batch`).
@@ -56,18 +65,20 @@ _M_QUEUE = telemetry.gauge(
 DEFAULT_MIN_BUCKET = 8
 
 
-def feed_mask(n_rows: int, n_valid, device=None):
+def feed_mask(n_rows: int, n_valid, device=None, offset: int = 0):
     """(weights, count) for a batch of `n_rows` rows inside a train step.
 
     `n_valid` None means an unbucketed batch: no mask, the static count.
     Otherwise `n_valid` is the real count (a 0-d int tensor, or an int),
-    and the weights are the float32 0/1 row mask over the padded rows."""
+    and the weights are the float32 0/1 row mask over the padded rows.
+    `offset` is the global index of the first row, for a rank holding a
+    slice of a global batch (`n_valid` then counts the global rows)."""
     if n_valid is None:
         return None, n_rows
     if not isinstance(n_valid, torch.Tensor):
         n_valid = torch.tensor(int(n_valid), dtype=torch.int32,
                                device=device)
-    rows = torch.arange(n_rows, device=n_valid.device)
+    rows = torch.arange(offset, offset + n_rows, device=n_valid.device)
     return (rows < n_valid).to(torch.float32), n_valid
 
 
@@ -145,16 +156,30 @@ class DeviceFeed:
         iteration yields (features, labels) pairs).
     buckets : explicit bucket sizes; default `pow2_buckets(source.batch())`.
     prefetch : upcoming batches kept in flight (0 disables lookahead).
+    sharding : optional placement of the batch dimension
+        (`parallel.mesh.batch_sharding(mesh)`): the feed then yields this
+        rank's rows of each global batch; `n_valid` stays the global real
+        count.
+    align : round every bucket up to a multiple of this (the data-axis
+        size, so every rank's slice has the same rows).
     """
 
     def __init__(self, source, buckets: Optional[Sequence[int]] = None,
-                 prefetch: int = 2, device=None):
+                 prefetch: int = 2, device=None, sharding=None,
+                 align: int = 1):
         if prefetch < 0:
             raise ValueError(f"prefetch must be >= 0, got {prefetch}")
         self.source = source
-        self.device = default_device(device)
+        self.device = default_device(
+            sharding.mesh.device if device is None and sharding is not None
+            else device)
         if buckets is None:
-            buckets = pow2_buckets(source.batch())
+            buckets = pow2_buckets(source.batch(), align=align)
+        elif align > 1 and any(b % align for b in buckets):
+            raise ValueError(
+                f"explicit buckets {list(buckets)} must be multiples of "
+                f"align={align}")
+        self.sharding = sharding
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive, got {buckets}")
@@ -192,6 +217,8 @@ class DeviceFeed:
             return t.to(self.device)
 
         def host(a):
+            if self.sharding is not None:
+                a = self.sharding.local(a)
             return torch.from_numpy(np.require(a, requirements=["C", "W"]))
 
         return FeedBatch(put(host(f)), put(host(l)),

@@ -41,8 +41,11 @@ with a `guardian_event(model, event)` hook
 count in the `dl4j_guardian_events{kind=}` telemetry series, every
 kind registered at 0 so a scrape sees it before the first fault.
 
-Left out until its ROADMAP Queue 1 item: `all_finite(axis_name=...)`
-(the all-replica veto of explicit-collective trainers, item 12) raises.
+Inside explicit per-rank code (the parallel trainers) `all_finite(
+axis_name=...)` all-reduces the not-finite indicator over that axis of
+the current mesh (`with mesh:`), so one rank's NaN vetoes the commit on
+every rank; `make_guard(save_fn=)` lets a trainer save its own way (the
+ZeRO-1 trainer gathers its flat optimizer state first).
 """
 
 from __future__ import annotations
@@ -110,17 +113,27 @@ def all_finite(score, *trees, axis_name: Optional[str] = None):
     """0-d bool device tensor: True iff `score` and every element of
     every tensor leaf of `trees` is finite (`torch.isfinite`, no norm
     shortcut, which would overflow on large finite values). No host
-    sync."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "all_finite(axis_name=...) vetoes a commit across replicas of "
-            "an explicit-collective trainer: ROADMAP Queue 1 item 12 "
-            "(parallel/) is not ported yet")
+    sync.
+
+    Inside explicit per-rank code pass `axis_name` (an axis, or a tuple
+    of axes, of the current mesh, `with mesh:`): the not-finite indicator
+    is summed over it, so one rank's NaN vetoes the commit everywhere and
+    every rank commits or skips together."""
     leaves = ([score] if score is not None else []) + [
         t for tree in trees for t in _tensor_leaves(tree)]
     if not leaves:
-        return torch.tensor(True)
-    return torch.stack([torch.isfinite(t).all() for t in leaves]).all()
+        ok = torch.tensor(True)
+    else:
+        ok = torch.stack([torch.isfinite(t).all() for t in leaves]).all()
+    if axis_name is not None:
+        from deeplearning4j_tpu_torch.parallel import collectives
+        from deeplearning4j_tpu_torch.parallel.mesh import current_mesh
+
+        mesh = current_mesh()
+        bad = torch.logical_not(ok).to(torch.int32).reshape(1).to(
+            mesh.device)
+        ok = collectives.all_reduce_(bad, mesh, axis_name)[0] == 0
+    return ok
 
 
 def commit(ok, old, new, out=None):
@@ -417,6 +430,7 @@ class TrainingGuard:
 
     def __init__(self, network, policy: Optional[GuardianPolicy] = None,
                  checkpoint_every: Optional[int] = None, saver=None,
+                 save_fn: Optional[Callable] = None,
                  start_position: int = 0, start_epoch: int = 0,
                  start_epoch_batch: int = 0):
         if checkpoint_every is not None and checkpoint_every < 1:
@@ -430,6 +444,7 @@ class TrainingGuard:
         if saver is None and checkpoint_every:
             saver = _ckpt.DefaultModelSaver()  # reference default path
         self.saver = saver
+        self._save_fn = save_fn
         self.session = (policy.session(self._emit, device=network.device)
                         if policy else None)
         #: TOTAL batches consumed, the checkpoint cursor. A resumed fit
@@ -540,9 +555,15 @@ class TrainingGuard:
         meta = {"guardian": self.session.stats()} if self.session else {}
         meta["epoch"] = self.epoch
         meta["epoch_batch"] = self.epoch_position
+        # save_fns use this to avoid collectives on the preemption path
+        # (SIGTERM reaches the ranks at different batches)
         meta["save_kind"] = kind
-        path = self.saver.save(self.network, iterator_position=self.position,
-                               metadata=meta)
+        if self._save_fn is not None:
+            path = self._save_fn(self.saver, self.position, meta)
+        else:
+            path = self.saver.save(self.network,
+                                   iterator_position=self.position,
+                                   metadata=meta)
         self._emit(kind, self.position, {"path": path})
         return path
 
@@ -562,7 +583,8 @@ class TrainingGuard:
 
 
 def make_guard(network, guardian=None, checkpoint_every: Optional[int] = None,
-               saver=None, start_position: int = 0, start_epoch: int = 0,
+               saver=None, save_fn: Optional[Callable] = None,
+               start_position: int = 0, start_epoch: int = 0,
                start_epoch_batch: int = 0
                ) -> Optional[TrainingGuard]:
     """The per-fit TrainingGuard, or None when every guardian feature is
@@ -571,12 +593,13 @@ def make_guard(network, guardian=None, checkpoint_every: Optional[int] = None,
     `guardian` is a GuardianPolicy, or True for defaults. A `saver`
     without `checkpoint_every` arms the preemption flush only.
     `start_position` / `start_epoch` / `start_epoch_batch` seed the
-    cursor of a resumed fit. (The JAX package's `save_fn=` serves its
-    sharded trainers and waits with them, ROADMAP Queue 1 item 12.)"""
+    cursor of a resumed fit. `save_fn(saver, position, metadata)`, when
+    given, makes each save instead of `saver.save(network, ...)` (the
+    parallel trainers gather sharded state and save on one rank)."""
     if guardian is None and not checkpoint_every and saver is None:
         return None
     policy = GuardianPolicy() if guardian is True else guardian
-    return TrainingGuard(network, policy, checkpoint_every, saver,
+    return TrainingGuard(network, policy, checkpoint_every, saver, save_fn,
                          start_position=start_position,
                          start_epoch=start_epoch,
                          start_epoch_batch=start_epoch_batch)

@@ -164,4 +164,7 @@ class NetworkGradientUpdater:
             for (k, n), u in zip(leaves, ups):
                 updates.setdefault(k, {})[n] = u
         torch._foreach_add_([s.iteration for s in state.values()], 1)
-        return updates, state
+        # in the params' order: the groups interleave layers whose rules
+        # differ, and callers zip the updates with the params' leaves
+        return {k: {n: updates[k][n] for n in params[k]}
+                for k in params}, state

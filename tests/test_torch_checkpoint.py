@@ -667,13 +667,42 @@ def test_validate_like_names_the_leaf_as_jax_does(fault):
 @pytest.mark.parametrize("what", ["orbax", "restore_params_for",
                                   "all_finite_axis_name"])
 def test_what_is_not_ported_refuses_naming_the_roadmap(tmp_path, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        if what == "orbax":
+    """Orbax still refuses, naming its ROADMAP item. `restore_params_for`
+    and `all_finite(axis_name=)` waited for item 12 (parallel/), which
+    is ported now: each works on a one- or two-rank gloo job."""
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.mesh import replicated
+    from deeplearning4j_tpu_torch.testing.ranks import run_ranks
+
+    if what == "orbax":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item"):
             OrbaxModelSaver(str(tmp_path))
-        elif what == "restore_params_for":
-            restore_params_for(str(tmp_path), None)
-        else:
-            all_finite(torch.tensor(1.0), axis_name="dp")
+    elif what == "restore_params_for":
+        _, net = _trained_pair("mlp")
+        with ShardedModelSaver(str(tmp_path), sync=True) as saver:
+            saver.save(net, iterator_position=1)
+
+        def body(rank):
+            mesh = make_mesh({"data": 1}, device="cpu")
+            placed = restore_params_for(str(tmp_path), replicated(mesh))
+            return {k: {n: v.numpy() for n, v in t.items()}
+                    for k, t in placed.items()}
+
+        placed = run_ranks(body, 1, timeout=120)[0]
+        for k, t in net.param_table.items():
+            for n, p in t.items():
+                np.testing.assert_array_equal(placed[k][n],
+                                              p.detach().numpy())
+    else:
+        def body(rank):
+            mesh = make_mesh({"dp": 2}, device="cpu")
+            score = torch.tensor(float("nan") if rank == 1 else 1.0)
+            with mesh:
+                return bool(all_finite(score, axis_name="dp"))
+
+        # one rank's NaN vetoes the commit on both
+        assert run_ranks(body, 2, timeout=120) == [False, False]
 
 
 # ----------------------------------------------------------------- card
