@@ -376,6 +376,44 @@ prints no result):
                   `--four-cards` runs the build and (b) alone with one rank
                   on each of 4 cards over NCCL, the meshes' default there,
                   no byte staged through the host (gated).
+20. nlp          — the word-vector stack (nlp/, utils/viterbi.py), which
+                  launches none of K1-K4 (gated: 0 on every counter).
+                  (b) BASELINE config 3 (bench.py:290-329): 200k zipfian
+                  tokens (bench.py's _zipf_sentences, seed 0), vocab 2k,
+                  dim 128, window 5, batch_pairs 4096, chunk_batches 32,
+                  with negative sampling (neg 5) and with HS, the pairs
+                  mined once and uploaded once: pairs/s over 3 timed
+                  train_pairs windows, mine s, ms, kernels and device ms
+                  a batch, busy share (a chunk profiled), host syncs in
+                  a chunk (0, gated), finite tables, and the first
+                  chunk's loss lower after the windows (gated). (a) Card
+                  against CPU at that width from the same start: one
+                  train_pairs chunk (32 x 4096 pairs) with the same
+                  injected negatives, the same chunk with HS, one GloVe
+                  epoch in the same order; every table (and GloVe's
+                  accumulators) within 1e-4 of its largest |entry|
+                  (float32; the card's scatters sum in another order).
+                  (c) BASELINE config 5 (bench.py:332-361): the same
+                  corpus, dim 128, batch 8192, prepare once, 2 windows
+                  of 16 epochs: triples/s, prepare s, kernels a step,
+                  busy share, 0 syncs inside an epoch and the final loss
+                  below the first epoch's (gated). (d) BASELINE config
+                  3c (BASELINE.md:86): ParagraphVectors, dim 128, neg 5,
+                  3 iterations, 100k documents of 20 tokens over 20
+                  topics (each drawn zipfian from its topic's 500 words
+                  of a 10k vocab, labelled by its topic), end to end
+                  through fit: pairs/s, word -> own-label retrieval on
+                  200 seeded probe words >= 0.9 (gated). (e) The
+                  config-3 vectors saved and loaded in both formats
+                  (binary bit-equal; text, 6 significant digits as the
+                  JAX package writes, saves again to the same bytes);
+                  Viterbi on 64 seeded sequences: decode on the card
+                  equal to the CPU's float32 decode and optimal for the
+                  numpy backend (its exact ties may break apart
+                  differently in float64), viterbi_path on the card
+                  equal to the numpy backend on tie-free random HMMs;
+                  Word2VecDataSetIterator yields one (64, 640) batch.
+                  Writes under build/chip_smoke_nlp/ and removes it.
 The phases 16-18 write under build/chip_smoke_cli/ and remove it; phase
 5f writes under build/chip_smoke_fleet/ and phase 17b under
 build/chip_smoke_pipeline/ and phase 19 under build/chip_smoke_parallel/,
@@ -390,7 +428,8 @@ causal), K1 at the model drafter's shape, and K1, K2 and K3 at the
 ring's shard shape (B*H 64, T 256, hd 128, causal and not). The kernels'
 launches are counted per path, a captured graph's replays included
 (serve, serve_features, spec, draft, http, disagg, fleet, train,
-multilayer, solver, guardian, cli, pipeline, parallel, ring).
+multilayer, solver, guardian, cli, pipeline, parallel, ring, and nlp,
+which is 0).
 The last lines are the card as nvidia-smi gives it, the kernels' JSON
 line (with each kernel's design), and
 {"ok": true, "device": {...}}.
@@ -3502,7 +3541,9 @@ def save_summary(saves) -> dict:
 
 def count_syncs(fn) -> int:
     """fn() under set_sync_debug_mode("warn"): the number of
-    synchronizing CUDA operations it made on this thread."""
+    synchronizing CUDA operations it made on this thread. The notice
+    torch gives once a process, at the first switch to a debug mode
+    ("Synchronization debug mode is a prototype feature"), is not one."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -3510,7 +3551,8 @@ def count_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("synchroniz" in str(w.message)
+               and "prototype" not in str(w.message) for w in caught)
 
 
 def autosave_syncs(device, x, y, batch) -> dict:
@@ -4884,6 +4926,374 @@ def phase_lstm(device, seed):
             "ok": parity["ok"] and full["ok"]}
 
 
+# ------------------------------------------------------ phase 20: nlp
+NLP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_nlp"
+NLP_TOKENS, NLP_VOCAB, NLP_DIM, NLP_WINDOW = 200_000, 2000, 128, 5
+NLP_B, NLP_CB = 4096, 32
+NLP_WINDOWS = 3           # timed train_pairs windows (bench.py's REPEATS)
+NLP_TOL = 1e-4            # card vs CPU, of the largest |entry| of a table
+GLOVE_BATCH, GLOVE_EPOCHS = 8192, 16
+PV_DOCS, PV_LEN, PV_TOPICS, PV_TOPIC_WORDS = 100_000, 20, 20, 500
+PV_PROBES, PV_RETRIEVAL = 200, 0.9
+VITERBI_SEQS, VITERBI_STATES = 64, 4
+#: device-time groups of a word-vector profile (index_add_ runs as
+#: indexFunc{Small,Large}Index, indexing gathers as index_elementwise /
+#: vectorized_gather, the _foreach AdaGrad as multi_tensor_apply)
+NLP_GROUPS = {"scatter": ("indexFuncSmallIndex", "indexFuncLargeIndex"),
+              "gather": ("vectorized_gather", "index_elementwise",
+                         "index_select"),
+              "bmm": ("gemm", "gemv", "nvjet", "Kernel2", "dot_kernel"),
+              "foreach": "multi_tensor_apply",
+              "random": ("philox", "distribution")}
+
+
+def zipf_sentences(n_tokens, vocab_size, seed=0, sent_len=40):
+    """bench.py's `_zipf_sentences` (BASELINE configs 3 and 5)."""
+    rng = np.random.RandomState(seed)
+    vocab = [f"w{i}" for i in range(vocab_size)]
+    zipf = 1.0 / np.arange(1, vocab_size + 1)
+    probs = zipf / zipf.sum()
+    tokens = rng.choice(vocab_size, size=n_tokens, p=probs)
+    return [" ".join(vocab[t] for t in tokens[i:i + sent_len])
+            for i in range(0, n_tokens, sent_len)]
+
+
+def topic_documents(seed, n_docs):
+    """Config 3c's corpus: n_docs documents of PV_LEN tokens, each from
+    one of PV_TOPICS topics (its label), drawn zipfian from the topic's
+    own PV_TOPIC_WORDS words (a 10k vocab)."""
+    rng = np.random.RandomState(seed)
+    zipf = 1.0 / np.arange(1, PV_TOPIC_WORDS + 1)
+    topics = rng.randint(0, PV_TOPICS, size=n_docs)
+    ranks = rng.choice(PV_TOPIC_WORDS, size=(n_docs, PV_LEN),
+                       p=zipf / zipf.sum())
+    words = topics[:, None] * PV_TOPIC_WORDS + ranks
+    return [(f"t{t}", " ".join(f"v{w}" for w in row))
+            for t, row in zip(topics, words)]
+
+
+def table_errs(cpu, card) -> dict:
+    """max |card - cpu| / max |cpu| per table ({name: table} each)."""
+    out = {}
+    for name, a in cpu.items():
+        a = torch.as_tensor(a).double()
+        out[name] = float((card[name].detach().cpu().double() - a).abs().max()
+                          / a.abs().max().clamp_min(1e-30))
+    return out
+
+
+def nlp_card_vs_cpu(device, sentences, pairs, seed) -> dict:
+    """(a) One train_pairs chunk (NLP_CB x NLP_B pairs) with negative
+    sampling and with HS, and one GloVe epoch, on the card and on the
+    CPU from the same start with the same negatives and order."""
+    from deeplearning4j_tpu_torch.nlp import Glove, Word2Vec
+
+    n = NLP_B * NLP_CB
+    c, x = pairs[0][:n], pairs[1][:n]
+    out = {}
+    for mode, negative in (("negative", 5), ("hs", 0)):
+        kw = dict(layer_size=NLP_DIM, window=NLP_WINDOW,
+                  min_word_frequency=1, negative=negative, seed=seed,
+                  batch_pairs=NLP_B, chunk_batches=NLP_CB)
+        cpu = Word2Vec(sentences, device="cpu", **kw)
+        card = Word2Vec(sentences, device=device, **kw)
+        cpu.build_vocab()
+        card.build_vocab()
+        negs = None
+        if negative:
+            uni = cpu._unigram_table()
+            negs = uni[np.random.RandomState(seed + 7).randint(
+                0, uni.size, (n, negative))]
+        cpu.train_pairs(c, x, alpha=0.025, negatives=negs)
+        card.train_pairs(c, x, alpha=0.025, negatives=negs)
+        names = ("syn0", "syn1neg" if negative else "syn1")
+        errs = table_errs({n: getattr(cpu, n) for n in names},
+                          {n: getattr(card, n) for n in names})
+        out[mode] = {"rel_err": errs,
+                     "ok": all(e <= NLP_TOL for e in errs.values())}
+    kw = dict(layer_size=NLP_DIM, window=NLP_WINDOW, min_word_frequency=1,
+              batch_size=GLOVE_BATCH, seed=seed)
+    cpu = Glove(sentences, device="cpu", **kw).prepare()
+    card = Glove(sentences, device=device, **kw).prepare()
+    perm = np.random.RandomState(seed + 8).permutation(cpu._triples[0].size)
+    lc = cpu.train_epochs(1, perms=[perm])
+    lg = card.train_epochs(1, perms=[perm])
+    errs = table_errs(cpu._params, card._params)
+    errs.update({f"accum_{k}": v for k, v in
+                 table_errs(cpu._accum, card._accum).items()})
+    out["glove"] = {"rel_err": errs, "loss": [lc, lg],
+                    "ok": all(e <= NLP_TOL for e in errs.values())
+                    and abs(lc - lg) <= NLP_TOL * abs(lc)}
+    out["tolerance"] = NLP_TOL
+    out["ok"] = all(out[k]["ok"] for k in ("negative", "hs", "glove"))
+    return out
+
+
+def nlp_word2vec(device, sentences, seed, negative, pairs=None) -> tuple:
+    """(b) BASELINE config 3 (bench.py:290-329): pairs mined once and
+    uploaded once, then NLP_WINDOWS timed train_pairs windows over all of
+    them. Returns (record, model, host pairs)."""
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    w2v = Word2Vec(sentences, layer_size=NLP_DIM, window=NLP_WINDOW,
+                   min_word_frequency=1, negative=negative, iterations=1,
+                   seed=seed, batch_pairs=NLP_B, chunk_batches=NLP_CB,
+                   device=device)
+    w2v.build_vocab()  # before the clock: mine_s times MINING only
+    t0 = time.perf_counter()
+    mined = w2v.mine_pairs(np.random.RandomState(1))
+    mine_s = time.perf_counter() - t0
+    if pairs is None:
+        pairs = mined
+    B, CB = NLP_B, NLP_CB
+    n = pairs[0].size // (B * CB) * (B * CB)
+    centers = torch.from_numpy(pairs[0][:n]).to(device)  # int32, once
+    contexts = torch.from_numpy(pairs[1][:n]).to(device)
+    chunk = (centers[:B * CB], contexts[:B * CB])
+    w2v.train_pairs(*chunk)
+    first_loss = float(w2v.last_loss)
+    syncs = count_syncs(lambda: w2v.train_pairs(*chunk))
+    secs = []
+    for _ in range(NLP_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w2v.train_pairs(centers, contexts)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    prof = device_profile(lambda: w2v.train_pairs(*chunk), iters=2,
+                          groups=NLP_GROUPS)
+    # the first chunk's last batch again, after the windows trained on
+    # every pair (the pairs come in mining order, so batches further on
+    # hold other window offsets and are not comparable)
+    last_loss = float(w2v.last_loss)
+    w2v.refresh_vectors()
+    win = sorted(secs)[len(secs) // 2]
+    finite = bool(np.isfinite(w2v.syn0).all() and torch.isfinite(
+        w2v.syn1neg if negative else w2v.syn1).all())
+    rec = {"negative": negative, "pairs_mined": int(mined[0].size),
+           "pairs_per_window": n, "mine_s": mine_s, "window_s": secs,
+           "pairs_per_s": n / win, "ms_per_batch": win * 1e3 / (n // B),
+           "kernels_per_batch": prof.get("kernels_per_call", 0) / CB,
+           "device_ms_per_batch": prof.get("device_ms_per_call", 0) / CB,
+           "wall_ms_per_batch_profiled":
+               prof.get("wall_ms_per_call", 0) / CB,
+           "busy_share": prof.get("device_busy_share"),
+           "profile": prof, "syncs_in_chunk": syncs,
+           "loss_first_chunk": first_loss,
+           "loss_first_chunk_after": last_loss,
+           "finite": finite}
+    rec["ok"] = (syncs == 0 and finite and last_loss < first_loss
+                 and "device_ms_per_call" in prof)
+    return rec, w2v, mined
+
+
+def nlp_glove(device, sentences, seed) -> dict:
+    """(c) BASELINE config 5 (bench.py:332-361): prepare once, then two
+    timed windows of GLOVE_EPOCHS epochs."""
+    from deeplearning4j_tpu_torch.nlp import Glove
+
+    glove = Glove(sentences, layer_size=NLP_DIM, window=NLP_WINDOW,
+                  min_word_frequency=1, batch_size=GLOVE_BATCH, seed=seed,
+                  device=device)
+    t0 = time.perf_counter()
+    glove.prepare()
+    prep_s = time.perf_counter() - t0
+    first = glove.train_epochs(1)
+    n = glove._triples[0].size
+    n_pad = (n + GLOVE_BATCH - 1) // GLOVE_BATCH * GLOVE_BATCH
+    steps = n_pad // GLOVE_BATCH
+    syncs = count_syncs(lambda: glove.run_epochs(1))
+    secs, loss = [], None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = glove.train_epochs(GLOVE_EPOCHS)
+        secs.append(time.perf_counter() - t0)
+    prof = device_profile(lambda: glove.run_epochs(1), iters=2,
+                          groups=NLP_GROUPS)
+    win = min(secs)
+    finite = bool(np.isfinite(glove.syn0).all())
+    rec = {"triples": int(n), "steps_per_epoch": steps, "prepare_s": prep_s,
+           "window_s": secs, "epochs_per_window": GLOVE_EPOCHS,
+           "triples_per_s": GLOVE_EPOCHS * n_pad / win,
+           "ms_per_step": win * 1e3 / (GLOVE_EPOCHS * steps),
+           "kernels_per_step": prof.get("kernels_per_call", 0) / steps,
+           "device_ms_per_step": prof.get("device_ms_per_call", 0) / steps,
+           "busy_share": prof.get("device_busy_share"), "profile": prof,
+           "syncs_in_epoch": syncs, "loss_first_epoch": first,
+           "loss_final": loss, "finite": finite}
+    rec["ok"] = (syncs == 0 and finite and loss < first
+                 and "device_ms_per_call" in prof)
+    return rec
+
+
+def nlp_paragraph_vectors(device, seed) -> dict:
+    """(d) BASELINE config 3c (BASELINE.md:86): ParagraphVectors end to end
+    through fit on PV_DOCS topic documents; word -> own-label retrieval
+    on PV_PROBES probe words (PV_PROBES / PV_TOPICS a topic, drawn from
+    the seed among the topic's words)."""
+    from deeplearning4j_tpu_torch.nlp import ParagraphVectors
+
+    docs = topic_documents(seed, PV_DOCS)
+    pv = ParagraphVectors(docs, layer_size=NLP_DIM, negative=5,
+                          iterations=3, seed=seed, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pv.fit()
+    fit_s = time.perf_counter() - t0
+    rng = np.random.RandomState(seed + 9)
+    hits, probes = 0, 0
+    for t in range(PV_TOPICS):
+        for r in rng.choice(PV_TOPIC_WORDS, PV_PROBES // PV_TOPICS,
+                            replace=False):
+            word = f"v{t * PV_TOPIC_WORDS + r}"
+            if not pv.has_word(word):
+                continue
+            probes += 1
+            hits += pv.nearest_labels(word, n=1)[0][0] == f"t{t}"
+    retrieval = hits / max(probes, 1)
+    return {"documents": PV_DOCS, "tokens": PV_DOCS * PV_LEN,
+            "vocab": pv.vocab.num_words(), "pairs": pv.pairs_trained,
+            "fit_s": fit_s, "pairs_per_s": pv.pairs_trained / fit_s,
+            "probes": probes, "retrieval": retrieval,
+            "ok": probes == PV_PROBES and retrieval >= PV_RETRIEVAL}
+
+
+def chain_tables(states, observed, meta=0.9, p=0.99):
+    """Viterbi's 2-parameter chain as float64 tables for viterbi_path."""
+    init = np.full(states, -math.log(states))
+    trans = np.full((states, states), math.log((1 - meta) / (states - 1)))
+    np.fill_diagonal(trans, math.log(meta))
+    emits = np.where(observed[:, None] == np.arange(states)[None, :],
+                     math.log(p), math.log((1 - p) / (states - 1)))
+    return init, trans, emits
+
+
+def path_score(init, trans, emits, path) -> float:
+    return float(init[path[0]] + emits[np.arange(len(path)), path].sum()
+                 + trans[path[:-1], path[1:]].sum())
+
+
+def nlp_rest(device, seed, w2v, sentences) -> dict:
+    """(e) The serializer, Viterbi and the DataSet bridge on the card."""
+    from deeplearning4j_tpu_torch.nlp import (LabelAwareSentenceIterator,
+                                              Word2VecDataSetIterator,
+                                              load_word_vectors,
+                                              save_word_vectors)
+    from deeplearning4j_tpu_torch.utils.viterbi import Viterbi, viterbi_path
+
+    out = {}
+    shutil.rmtree(NLP_DIR, ignore_errors=True)
+    NLP_DIR.mkdir(parents=True)
+    try:
+        ser = {}
+        for binary in (True, False):
+            path = NLP_DIR / ("vectors.bin" if binary else "vectors.txt")
+            save_word_vectors(w2v, str(path), binary=binary)
+            loaded = load_word_vectors(str(path), binary=binary)
+            again = NLP_DIR / ("again.bin" if binary else "again.txt")
+            save_word_vectors(loaded, str(again), binary=binary)
+            rec = {"bytes": path.stat().st_size,
+                   "vocab_equal": loaded.vocab.words() == w2v.vocab.words(),
+                   "resaved_bytes_equal":
+                       again.read_bytes() == path.read_bytes(),
+                   "bit_equal": bool(np.array_equal(
+                       loaded.syn0.view(np.uint32),
+                       w2v.syn0.view(np.uint32))),
+                   "max_rel_err": float(np.abs(loaded.syn0 - w2v.syn0).max()
+                                        / np.abs(w2v.syn0).max())}
+            # the text format keeps 6 significant digits (the JAX
+            # package's "%.6g"): bit-equal through binary, and a text
+            # file loads and saves again to the same bytes
+            rec["ok"] = (rec["vocab_equal"] and rec["resaved_bytes_equal"]
+                         and (rec["bit_equal"] if binary
+                              else rec["max_rel_err"] <= 1e-5))
+            ser["binary" if binary else "text"] = rec
+        out["serializer"] = ser
+    finally:
+        shutil.rmtree(NLP_DIR, ignore_errors=True)
+    rng = np.random.RandomState(seed + 10)
+    card_v = Viterbi(np.arange(VITERBI_STATES), device=device)
+    cpu_v = Viterbi(np.arange(VITERBI_STATES), device="cpu")
+    decode_equal = general_equal = numpy_equal = 0
+    worst_gap = 0.0
+    for _ in range(VITERBI_SEQS):
+        obs = rng.randint(0, VITERBI_STATES, size=1 + rng.randint(0, 64))
+        logp, path = card_v.decode(obs, binary_label_matrix=False)
+        decode_equal += bool(np.array_equal(
+            path, cpu_v.decode(obs, binary_label_matrix=False)[1]))
+        tables = chain_tables(VITERBI_STATES, obs)
+        best, npath = viterbi_path(*tables)
+        numpy_equal += bool(np.array_equal(path, npath))
+        worst_gap = max(worst_gap, abs(path_score(*tables, path) - best)
+                        / abs(best))
+        li = np.log(rng.dirichlet(np.ones(VITERBI_STATES)))
+        lt = np.log(rng.dirichlet(np.ones(VITERBI_STATES),
+                                  size=VITERBI_STATES))
+        le = np.log(rng.dirichlet(np.ones(VITERBI_STATES), size=len(obs)))
+        general_equal += bool(np.array_equal(
+            viterbi_path(li, lt, le, backend="torch", device=device)[1],
+            viterbi_path(li, lt, le)[1]))
+    # the 2-parameter chain has exact ties between paths; float32 and
+    # float64 may break them apart differently, so decode is held to the
+    # CPU's float32 decode path for path and to the numpy backend by
+    # score (an optimal path), and viterbi_path on tie-free random HMMs
+    # to the numpy backend path for path
+    out["viterbi"] = {"sequences": VITERBI_SEQS,
+                      "decode_equal_cpu": decode_equal,
+                      "decode_equal_numpy": numpy_equal,
+                      "decode_worst_score_gap": worst_gap,
+                      "viterbi_path_equal_numpy": general_equal,
+                      "ok": decode_equal == general_equal == VITERBI_SEQS
+                      and worst_gap <= 1e-5}
+    labeled = [(f"l{i % 2}", s) for i, s in enumerate(sentences[:16])]
+    it = Word2VecDataSetIterator(w2v, LabelAwareSentenceIterator(labeled),
+                                 labels=["l0", "l1"], batch=64)
+    ds = it.next()
+    shape_ok = (ds.features.shape == (64, NLP_DIM * NLP_WINDOW)
+                and ds.labels.shape == (64, 2)
+                and bool((ds.labels.sum(axis=1) == 1).all())
+                and bool(np.isfinite(ds.features).all()))
+    out["dataset_iterator"] = {"features": list(ds.features.shape),
+                               "labels": list(ds.labels.shape),
+                               "ok": shape_ok}
+    out["ok"] = (all(r["ok"] for r in ser.values()) and out["viterbi"]["ok"]
+                 and shape_ok)
+    return out
+
+
+def phase_nlp(device, seed):
+    """Phase 20; see the module docstring."""
+    before = {**flash_counts(), "paged_decode": paged.launches}
+    sentences = zipf_sentences(NLP_TOKENS, NLP_VOCAB, seed=0)
+    out = {}
+    t0 = time.perf_counter()
+    neg, w2v, pairs = nlp_word2vec(device, sentences, seed, negative=5)
+    out["config3_negative"] = neg
+    out["config3_hs"], _, _ = nlp_word2vec(device, sentences, seed,
+                                           negative=0, pairs=pairs)
+    out["config3_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = nlp_card_vs_cpu(device, sentences, pairs, seed)
+    out["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["config5"] = nlp_glove(device, sentences, seed)
+    out["config5"]["seconds"] = time.perf_counter() - t0
+    out["config3c"] = nlp_paragraph_vectors(device, seed)
+    t0 = time.perf_counter()
+    out["rest"] = nlp_rest(device, seed, w2v, sentences)
+    out["rest"]["seconds"] = time.perf_counter() - t0
+    # the word-vector path reaches none of K1-K4
+    after = {**flash_counts(), "paged_decode": paged.launches}
+    out["k1_k4_launches"] = {k: after[k] - before[k] for k in after}
+    out["card"] = nvidia_smi()
+    out["ok"] = (all(out[k]["ok"] for k in ("config3_negative", "config3_hs",
+                                            "card_vs_cpu", "config5",
+                                            "config3c", "rest"))
+                 and not any(out["k1_k4_launches"].values()))
+    return out
+
+
 def device_profile(fn, iters: int, groups=None) -> dict:
     """Device time by kernel over `iters` calls (torch.profiler, CUDA
     activity only counted from kernel events), and the device's busy
@@ -5743,6 +6153,14 @@ def main(argv=None) -> int:
     ring_shape = ring_kernel_timing(device, timer, args.seed)
     par["kernel_timing_seconds"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    nlp = phase_nlp(device, args.seed)
+    nlp["seconds"] = time.perf_counter() - t0
+    emit({"phase": "nlp", **nlp})
+    record["nlp"] = nlp
+    if not nlp["ok"]:
+        raise AssertionError(f"nlp failed: {nlp}")
+
     k1, k4 = kernels
     sf = record["serve_features"]["launches_by_path"]
     k1["draft_shape"] = \
@@ -5789,6 +6207,9 @@ def main(argv=None) -> int:
                                  ml_shape[row["name"]]["max_abs_err"],
                                  *(r["max_abs_err"] for r in
                                    ring_shape[row["name"]].values()))
+    for row in (k1, *bwd_rows, k4):  # 0: the word-vector path has none
+        row["launches_by_path"]["nlp"] = nlp["k1_k4_launches"][row["name"]]
+        row["launches"] = sum(row["launches_by_path"].values())
     kernels = [k1, *bwd_rows, k4]
     emit({"phase": "main_path_steps", **steps})
     record["main_path_steps"] = steps

@@ -33,6 +33,7 @@ from typing import Callable, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch import default_device
 from deeplearning4j_tpu_torch.parallel import collectives as C
 
 EXPERT_AXIS = "expert"
@@ -42,9 +43,11 @@ __all__ = ["EXPERT_AXIS", "init_moe_params", "moe_reference", "moe_apply",
 
 
 def init_moe_params(gen: torch.Generator, n_experts: int, d_in: int,
-                    d_hidden: int, scale: float = 0.5, device="cpu"):
+                    d_hidden: int, scale: float = 0.5, device=None):
     """Router + per-expert 2-layer MLP. W1: (E, d_in, d_hidden),
-    W2: (E, d_hidden, d_in), drawn from the torch generator `gen`."""
+    W2: (E, d_hidden, d_in), drawn on the CPU from the torch generator
+    `gen` and moved to `device` (None = the card, raising without one)."""
+    device = default_device(device)
     def u(shape, d):
         return ((torch.rand(shape, generator=gen, dtype=torch.float32) * 2
                  - 1) * (scale / d)).to(device)

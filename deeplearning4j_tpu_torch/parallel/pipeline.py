@@ -33,6 +33,7 @@ from typing import Callable, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch import default_device
 from deeplearning4j_tpu_torch.parallel import collectives as C
 
 PIPE_AXIS = "pipe"
@@ -42,9 +43,11 @@ __all__ = ["PIPE_AXIS", "init_pipeline_params", "sequential_apply",
 
 
 def init_pipeline_params(gen: torch.Generator, n_stages: int, width: int,
-                         scale=0.5, device="cpu"):
+                         scale=0.5, device=None):
     """Uniform stack: W (S, d, d) uniform in +-scale/d, b (S, 1, d)
-    zeros, drawn from the torch generator `gen`."""
+    zeros, drawn on the CPU from the torch generator `gen` and moved to
+    `device` (None = the card, raising without one)."""
+    device = default_device(device)
     w = (torch.rand((n_stages, width, width), generator=gen,
                     dtype=torch.float32) * 2 - 1) * (scale / width)
     return {"W": w.to(device),

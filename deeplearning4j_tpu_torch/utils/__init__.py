@@ -1,7 +1,9 @@
 """Helpers of the port: input validation, and its own copies of the JAX
 package's moving-window matrix, image loader (PIL, imported at first
 use), archive extraction, embedded HTTP servers (`httpd`), the
-crash-safe journal (`statefile`) and spawned-process groups (`procs`)."""
+crash-safe journal (`statefile`), spawned-process groups (`procs`), the
+math helpers (`math_utils`), the spill-to-disk queue (`disk_based_queue`)
+and the Viterbi decoder (`viterbi`, on a device)."""
 
 from deeplearning4j_tpu_torch.utils.archive import unzip_file_to  # noqa: F401
 from deeplearning4j_tpu_torch.utils.image_loader import (  # noqa: F401

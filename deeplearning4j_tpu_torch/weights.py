@@ -9,7 +9,10 @@ device, `params_to_numpy` goes back. A MultiLayerNetwork's table
 `multilayer_params_from_jax` / `multilayer_params_to_numpy`. bfloat16
 arrays (numpy's `ml_dtypes` bfloat16, which JAX hands out) cross bit for
 bit; on the way back a bfloat16 tensor becomes float32 numpy, since
-plain numpy has no bfloat16.
+plain numpy has no bfloat16. The word-vector models cross with
+`word2vec_tables_from_jax` (syn0 and syn1 / syn1neg) and
+`glove_state_from_jax` (GloVe's {"w", "c", "bw", "bc"} and its AdaGrad
+accumulators).
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from deeplearning4j_tpu_torch import default_device
 
 __all__ = ["params_from_jax", "params_to_numpy", "params_to_device",
            "tree_map", "multilayer_params_from_jax",
-           "multilayer_params_to_numpy"]
+           "multilayer_params_to_numpy", "word2vec_tables_from_jax",
+           "glove_state_from_jax"]
 
 
 def tree_map(fn, tree):
@@ -97,3 +101,53 @@ def multilayer_params_to_numpy(table):
     `net._params = jax.tree_util.tree_map(jnp.asarray, table)`."""
     _check_table(table)
     return params_to_numpy(table)
+
+
+WORD2VEC_TABLES = ("syn0", "syn1", "syn1neg")
+GLOVE_PARAMS = ("w", "c", "bw", "bc")
+
+
+def _float32_on(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def word2vec_tables_from_jax(model, tables):
+    """A JAX Word2Vec's tables as numpy ({"syn0": ..., and "syn1" or
+    "syn1neg"}, e.g. `{k: np.asarray(getattr(jax_w2v, k)) for k in
+    ("syn0", "syn1", "syn1neg") if getattr(jax_w2v, k) is not None}`)
+    -> the port model's (`Word2Vec` or `ParagraphVectors` with its vocab
+    built), as float32 copies on the model's device. A table the dict
+    lacks is cleared. Returns the model."""
+    unknown = set(tables) - set(WORD2VEC_TABLES)
+    if unknown or "syn0" not in tables:
+        raise ValueError(f"word2vec tables are syn0 and syn1 / syn1neg, "
+                         f"got {sorted(tables)}")
+    n = model.vocab.num_words()
+    for name in WORD2VEC_TABLES:
+        a = tables.get(name)
+        if a is not None and np.shape(a)[0] != n:
+            raise ValueError(f"{name} has {np.shape(a)[0]} rows for a vocab "
+                             f"of {n}")
+        setattr(model, name,
+                None if a is None else _float32_on(a, model.device))
+    return model
+
+
+def glove_state_from_jax(model, params, accum=None):
+    """A JAX Glove's parameters as numpy ({"w", "c", "bw", "bc"}, e.g.
+    `{k: np.asarray(v) for k, v in jax_glove._params.items()}`) and,
+    optionally, its AdaGrad accumulators the same way -> the port
+    `Glove`'s (after its `prepare()`), float32 copies on its device.
+    Without `accum` the accumulators restart at 1e-8. Returns the
+    model."""
+    for tree in (params, accum):
+        if tree is not None and set(tree) != set(GLOVE_PARAMS):
+            raise ValueError(f"GloVe state is {GLOVE_PARAMS}, got "
+                             f"{sorted(tree)}")
+    model._params = {k: _float32_on(params[k], model.device)
+                     for k in GLOVE_PARAMS}
+    model._accum = ({k: torch.full_like(p, 1e-8)
+                     for k, p in model._params.items()} if accum is None
+                    else {k: _float32_on(accum[k], model.device)
+                          for k in GLOVE_PARAMS})
+    return model

@@ -21,6 +21,7 @@ import torch
 from deeplearning4j_tpu.parallel import make_mesh as jmake_mesh
 from deeplearning4j_tpu.parallel import pipeline as jpipe
 from deeplearning4j_tpu_torch.parallel import make_mesh
+from deeplearning4j_tpu_torch.parallel import expert_parallel as ep
 from deeplearning4j_tpu_torch.parallel import pipeline as pipe
 from deeplearning4j_tpu_torch.testing.ranks import run_ranks
 
@@ -138,10 +139,23 @@ class TestPipelineParallel:
 
     def test_init_pipeline_params_shapes_and_range(self):
         gen = torch.Generator().manual_seed(0)
-        p = pipe.init_pipeline_params(gen, 4, 16)
+        p = pipe.init_pipeline_params(gen, 4, 16, device="cpu")
         jp = jpipe.init_pipeline_params(jax.random.PRNGKey(0), 4, 16)
         for name in ("W", "b"):
             assert tuple(p[name].shape) == tuple(jp[name].shape)
             assert p[name].dtype == torch.float32
         assert float(p["W"].abs().max()) <= 0.5 / 16
         assert not p["b"].any()
+
+    @pytest.mark.parametrize("init", ["pipeline", "moe"])
+    def test_initializer_default_device_is_the_card(self, init):
+        # device=None means the card (the package's device policy): on a
+        # box without one it raises instead of falling back to the CPU
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        gen = torch.Generator().manual_seed(0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            if init == "pipeline":
+                pipe.init_pipeline_params(gen, 4, 16)
+            else:
+                ep.init_moe_params(gen, 4, 16, 32)
