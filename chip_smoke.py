@@ -413,7 +413,64 @@ prints no result):
                   differently in float64), viterbi_path on the card
                   equal to the numpy backend on tie-free random HMMs;
                   Word2VecDataSetIterator yields one (64, 640) batch.
-                  Writes under build/chip_smoke_nlp/ and removes it.
+                  Writes under build/chip_smoke_nlp/ and removes it;
+                  hands config 3c's word vectors, their topic ids and
+                  counts to phase 22.
+21. rntn         — the tree stack (nlp/tree.py, rntn.py, pos.py,
+                  sentiment.py), which launches none of K1-K4 (gated).
+                  A seeded corpus of SST's shape (sst_corpus: 8,544 /
+                  1,101 / 2,210 sentences, lengths 1-56 with mean ~19,
+                  zipfian 16k words, random-split bracketing, a gold
+                  label on every node from seeded word polarities);
+                  the reference's width: num_hidden 25, tensors on,
+                  tanh, simplified, 5 classes. (a) Card against CPU
+                  from the same parameters: 1,024 trees for 3 epochs,
+                  and the per-category model (8 syntactic labels,
+                  binary classification) on 256 trees for 2 epochs:
+                  the gradient before the first update, every epoch's
+                  loss within 1e-5 relative, every table and AdaGrad
+                  history within 1e-4 of its largest |entry|, T within
+                  1e-3 (gated; RNTN_TOL has the reading behind T's
+                  bound; each table's worst entry is recorded with the
+                  CPU's |g| there before each epoch's update). (b) fit on the 8,544 trees, 50 full-batch
+                  epochs: 0 syncs before the final read, finite tables,
+                  the loss at epoch 50 below epoch 1's, the level count
+                  equal to the tallest tree's depth and below max_nodes
+                  (gated); ms an epoch, trees/s, nodes/s, kernels and
+                  device ms an epoch, busy share (an epoch profiled).
+                  (c) output on the 2,210 test trees, predict and
+                  forward_propagate_tree on 64 of them: predict's class
+                  equal to output's, roots from predict within 1e-6 of
+                  output's, per-node vectors, predictions and errors
+                  within 1e-4 of a CPU copy's, each bound raised to 4x
+                  the CPU's own float32 error against a float64 copy
+                  where the trained model is that sensitive (gated);
+                  root accuracy beside the majority-class rate. (d) HmmPosTagger trained on the train yields,
+                  tagging the test yields, the lexicon classifying them,
+                  annotate_windows over one sentence (tokens/s, host).
+22. clusters     — clustering/ and plot/ over config 3c's 10,020 x 128
+                  word vectors, which launch none of K1-K4 (gated).
+                  (a) KMeansClustering(k=20, max_iterations=100,
+                  tol=1e-4) card against CPU: assignments equal except
+                  near-ties (two nearest squared distances within 1e-5
+                  relative), centroids within 1e-4 (gated); ms and
+                  kernels an iteration, iterations, topic purity.
+                  (b) Exact Tsne at its defaults (perplexity 30, 500
+                  iterations) over the 100 most frequent words of each
+                  topic (2,000 points): the first 10 iterations card
+                  against CPU from the same start within 1e-4 of max |y|
+                  (beside the CPU against itself from a start one ulp
+                  away), 0 syncs in the loop, a finite embedding
+                  (gated); host affinity s, device ms, kernels and busy
+                  share an iteration, 10-NN topic agreement in 2-D
+                  beside 128-D. (c) BarnesHutTsne on 256 of them, 300
+                  iterations (host numpy): finite. (d) serve_coords over
+                  the embedding: GET /api/coords returns the 2,000
+                  coordinates and labels, and the server closes.
+                  (e) KDTree and VPTree k-NN (k 10, 64 queries) on the
+                  10,020 vectors equal to brute force. (f)
+                  interop.to_device on the card. (g) phase 21's
+                  parameters through utils.serialization bit-equal.
 The phases 16-18 write under build/chip_smoke_cli/ and remove it; phase
 5f writes under build/chip_smoke_fleet/ and phase 17b under
 build/chip_smoke_pipeline/ and phase 19 under build/chip_smoke_parallel/,
@@ -429,7 +486,7 @@ ring's shard shape (B*H 64, T 256, hd 128, causal and not). The kernels'
 launches are counted per path, a captured graph's replays included
 (serve, serve_features, spec, draft, http, disagg, fleet, train,
 multilayer, solver, guardian, cli, pipeline, parallel, ring, and nlp,
-which is 0).
+rntn and clusters, which are 0).
 The last lines are the card as nvidia-smi gives it, the kernels' JSON
 line (with each kernel's design), and
 {"ok": true, "device": {...}}.
@@ -5127,11 +5184,12 @@ def nlp_glove(device, sentences, seed) -> dict:
     return rec
 
 
-def nlp_paragraph_vectors(device, seed) -> dict:
+def nlp_paragraph_vectors(device, seed, shared=None) -> dict:
     """(d) BASELINE config 3c (BASELINE.md:86): ParagraphVectors end to end
     through fit on PV_DOCS topic documents; word -> own-label retrieval
     on PV_PROBES probe words (PV_PROBES / PV_TOPICS a topic, drawn from
-    the seed among the topic's words)."""
+    the seed among the topic's words). Hands the trained word vectors,
+    their topic ids and counts to phase 22 through `shared`."""
     from deeplearning4j_tpu_torch.nlp import ParagraphVectors
 
     docs = topic_documents(seed, PV_DOCS)
@@ -5152,6 +5210,18 @@ def nlp_paragraph_vectors(device, seed) -> dict:
             probes += 1
             hits += pv.nearest_labels(word, n=1)[0][0] == f"t{t}"
     retrieval = hits / max(probes, 1)
+    if shared is not None:
+        words = pv.vocab.words()
+        syn0 = pv.syn0
+        shared["config3c"] = {
+            "words": words,
+            "vectors": np.asarray(syn0.detach().cpu().numpy()
+                                  if isinstance(syn0, torch.Tensor) else syn0,
+                                  np.float32),
+            "topics": np.array([
+                int(w[len("__label__t"):]) if w.startswith("__label__")
+                else int(w[1:]) // PV_TOPIC_WORDS for w in words]),
+            "counts": np.array([pv.vocab.word_frequency(w) for w in words])}
     return {"documents": PV_DOCS, "tokens": PV_DOCS * PV_LEN,
             "vocab": pv.vocab.num_words(), "pairs": pv.pairs_trained,
             "fit_s": fit_s, "pairs_per_s": pv.pairs_trained / fit_s,
@@ -5262,8 +5332,9 @@ def nlp_rest(device, seed, w2v, sentences) -> dict:
     return out
 
 
-def phase_nlp(device, seed):
-    """Phase 20; see the module docstring."""
+def phase_nlp(device, seed, shared=None):
+    """Phase 20; see the module docstring. `shared` receives config 3c's
+    word vectors for phase 22."""
     before = {**flash_counts(), "paged_decode": paged.launches}
     sentences = zipf_sentences(NLP_TOKENS, NLP_VOCAB, seed=0)
     out = {}
@@ -5279,7 +5350,7 @@ def phase_nlp(device, seed):
     t0 = time.perf_counter()
     out["config5"] = nlp_glove(device, sentences, seed)
     out["config5"]["seconds"] = time.perf_counter() - t0
-    out["config3c"] = nlp_paragraph_vectors(device, seed)
+    out["config3c"] = nlp_paragraph_vectors(device, seed, shared)
     t0 = time.perf_counter()
     out["rest"] = nlp_rest(device, seed, w2v, sentences)
     out["rest"]["seconds"] = time.perf_counter() - t0
@@ -5291,6 +5362,669 @@ def phase_nlp(device, seed):
                                             "card_vs_cpu", "config5",
                                             "config3c", "rest"))
                  and not any(out["k1_k4_launches"].values()))
+    return out
+
+
+# ------------------------------------------------------------------ rntn
+#: SST's split sizes (Socher et al. 2013: 8,544 / 1,101 / 2,210), its
+#: five classes, the reference RNTN's width (RNTN.java:70) and the
+#: seeded corpus's vocabulary and lengths
+SST_SPLITS = {"train": 8544, "dev": 1101, "test": 2210}
+SST_VOCAB, SST_MAX_LEN, SST_MEAN_LEN = 16_000, 56, 19.0
+SST_CLASSES, RNTN_HIDDEN = 5, 25
+SYNTAX_LABELS = ("NP", "VP", "PP", "ADJP", "ADVP", "S", "SBAR", "PRT")
+#: card vs CPU: (trees, epochs) of the simplified and per-category models
+RNTN_PARITY = {"simplified": (1024, 3), "per_category": (256, 2)}
+RNTN_EPOCHS, RNTN_PROBES = 50, 64
+#: loss relative; tables, gradients and per-node values of the largest
+#: |entry|; the root's probabilities from predict against output. T's
+#: own bound is 1e-3 from this reading (PR 15 run 0, 1,024 trees, 3
+#: epochs at lr 0.01, the history reset each epoch): T ended 1.5e-4 of
+#: max |T| off at entry (0, 21, 25, 38), 4.7e-6 apart with |g| 9.0e-6
+#: before the first update, while every loss agreed within 6.5e-8 and
+#: every gradient within 7.9e-7; AdaGrad's step lr·g / (|g| + 1e-6) after
+#: each reset moves an entry whose gradient has fallen near 0 by an amount
+#: its rounding shifts up to lr / 1e-6 = 1e4 times
+RNTN_TOL = {"loss": 1e-5, "tables": 1e-4, "T": 1e-3, "nodes": 1e-4,
+            "root": 1e-6}
+#: (c): a per-node or root difference may also reach this many times the
+#: CPU's own float32 error against float64 (rntn_inference says why)
+RNTN_SLACK = 4.0
+RNTN_GROUPS = {"gemm": ("gemm", "gemv", "nvjet", "Kernel2", "dot_kernel"),
+               "gather": ("index_select", "vectorized_gather",
+                          "index_elementwise", "indexSelect"),
+               "scatter": ("indexFuncSmallIndex", "indexFuncLargeIndex",
+                           "index_add"),
+               "cat": ("CatArrayBatchedCopy", "cat_"),
+               "reduce": ("reduce_kernel",)}
+
+
+def sst_corpus(seed) -> dict:
+    """A seeded corpus of SST's shape (nothing downloaded): for each split
+    its number of sentences, lengths drawn as round(Gamma(3, 19 / 3))
+    clipped to [1, 56], tokens `w<rank>` drawn zipfian (p ∝ 1 / rank)
+    from 16,000 words, and random-split binary bracketing (each span
+    splits at a uniform point). Labels, on every node as SST labels every
+    phrase: each word gets a seeded polarity p_w in {-2, ..., 2} (0 with
+    probability 0.6, ±1 0.15 each, ±2 0.05 each), and a node's gold label
+    is 2 + clip(sum of p_w over its span, -2, 2). Each word also gets one
+    of 8 syntactic labels (its preterminal's), and a binary node takes
+    label (3·left + right) mod 8, for the per-category model and the
+    tagger. Returns {split: trees, "polarity", "tags"}."""
+    from deeplearning4j_tpu_torch.nlp import Tree
+
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, SST_VOCAB + 1)
+    polarity = rng.choice([-2, -1, 0, 1, 2], size=SST_VOCAB,
+                          p=[0.05, 0.15, 0.6, 0.15, 0.05])
+    tags = rng.randint(0, len(SYNTAX_LABELS), SST_VOCAB)
+
+    def label(score):
+        return int(2 + min(2, max(-2, score)))
+
+    def build(words, lo, hi):
+        if hi - lo == 1:
+            w = words[lo]
+            leaf = Tree(value=f"w{w}")
+            return (Tree(children=[leaf], gold_label=label(polarity[w]),
+                         label=SYNTAX_LABELS[tags[w]]),
+                    int(polarity[w]), int(tags[w]))
+        k = rng.randint(lo + 1, hi)
+        left, sl, tl = build(words, lo, k)
+        right, sr, tr = build(words, k, hi)
+        t = (3 * tl + tr) % len(SYNTAX_LABELS)
+        return (Tree(children=[left, right], gold_label=label(sl + sr),
+                     label=SYNTAX_LABELS[t]), sl + sr, t)
+
+    out = {"polarity": polarity, "tags": tags}
+    for split, n in SST_SPLITS.items():
+        lengths = np.clip(np.rint(rng.gamma(3.0, SST_MEAN_LEN / 3.0, n)),
+                          1, SST_MAX_LEN).astype(int)
+        trees = []
+        for length in lengths:
+            words = rng.choice(SST_VOCAB, size=length, p=p / p.sum())
+            trees.append(build(words, 0, length)[0])
+        out[split] = trees
+    return out
+
+
+def rntn_pair(device, trees, seed, **kw):
+    """A CPU RNTN and one on `device` with the same vocab, categories and
+    parameters for `trees`, fresh AdaGrad histories, and each one's
+    schedule of `trees`: ((cpu, its schedule), (card, its schedule))."""
+    from deeplearning4j_tpu_torch.nlp import RNTN
+
+    kw = dict(num_hidden=RNTN_HIDDEN, num_outs=SST_CLASSES, seed=seed, **kw)
+    cpu = RNTN(device="cpu", **kw)
+    cpu_sched = cpu.prepare(trees)
+    card = RNTN(device=device, **kw)
+    card.word_index = dict(cpu.word_index)
+    card.cat_index = cpu.cat_index and dict(cpu.cat_index)
+    card.ccat_index = cpu.ccat_index and dict(cpu.ccat_index)
+    card.set_params(cpu.params())
+    return (cpu, cpu_sched), (card, card.prepare(trees))
+
+
+def worst_entries(cpu: dict, card: dict, grads: list) -> dict:
+    """Per table, the entry furthest from the CPU's and the CPU's |g|
+    there before each epoch's update."""
+    out = {}
+    for k, a in cpu.items():
+        diff = (card[k].detach().cpu().double() - a.double()).abs()
+        i = int(diff.argmax())
+        out[k] = {"entry": [int(j) for j in np.unravel_index(
+                      i, tuple(a.shape))],
+                  "abs_diff": float(diff.reshape(-1)[i]),
+                  "abs_g_by_epoch": [float(g[k].reshape(-1)[i].abs())
+                                     for g in grads]}
+    return out
+
+
+def rntn_card_vs_cpu(device, corpus, seed) -> dict:
+    """(a) From the same parameters, epoch by epoch: the gradient before
+    each update and the loss, then every table and AdaGrad history."""
+    out = {}
+    for name, (n, epochs) in RNTN_PARITY.items():
+        kw = ({} if name == "simplified" else
+              dict(simplified_model=False, combine_classification=False))
+        trees = corpus["train"][:n]
+        pair = rntn_pair(device, trees, seed, **kw)
+        (cpu, _), (card, _) = pair
+        cpu_grads, grad_err, losses = [], {}, [[], []]
+        for _ in range(epochs):
+            grads = [m.loss_and_grads(m.params(), sched,
+                                      m._class_weight_vec())[1]
+                     for m, sched in pair]
+            cpu_grads.append(grads[0])
+            for k, e in table_errs(*grads).items():
+                grad_err[k] = max(grad_err.get(k, 0.0), e)
+            for i, (m, sched) in enumerate(pair):
+                # the history reset every epoch, as fit's default
+                # adagrad_reset_frequency of 1 does
+                m._adagrad_hist = {k: torch.zeros_like(v)
+                                   for k, v in m.params().items()}
+                losses[i].append(float(m.step(sched,
+                                              m._class_weight_vec())))
+        losses = np.array(losses)
+        errs = table_errs(cpu.params(), card.params())
+        errs.update({f"hist_{k}": v for k, v in table_errs(
+            cpu._adagrad_hist, card._adagrad_hist).items()})
+        loss_rel = np.abs(losses[1] - losses[0]) / np.abs(losses[0])
+        rec = {"trees": n, "epochs": epochs,
+               "categories": [len(cpu.cat_index or [0]),
+                              len(cpu.ccat_index or [0])],
+               "loss_cpu": losses[0].tolist(), "loss_card": losses[1].tolist(),
+               "loss_rel_err": loss_rel.tolist(), "grad_rel_err": grad_err,
+               "rel_err": errs,
+               "worst": worst_entries(cpu.params(), card.params(),
+                                      cpu_grads)}
+        rec["ok"] = bool((loss_rel <= RNTN_TOL["loss"]).all()
+                         and max(grad_err.values()) <= RNTN_TOL["tables"]
+                         and all(e <= RNTN_TOL.get(k, RNTN_TOL["tables"])
+                                 for k, e in errs.items()))
+        out[name] = rec
+    out["tolerance"] = RNTN_TOL
+    out["ok"] = all(out[k]["ok"] for k in RNTN_PARITY)
+    return out
+
+
+def rntn_fit(device, corpus, seed):
+    """(b) The simplified model at the reference's width trained on the
+    8,544 trees for RNTN_EPOCHS full-batch AdaGrad epochs: fit() is
+    prepare + run_epochs + one read, and everything before the read is
+    counted for syncs. One more epoch is profiled from a copy of the
+    state, which is then put back. Returns (record, model)."""
+    from deeplearning4j_tpu_torch.nlp import RNTN
+
+    trees = corpus["train"]
+    model = RNTN(num_hidden=RNTN_HIDDEN, num_outs=SST_CLASSES, seed=seed,
+                 device=device)
+    held = []
+    t0 = time.perf_counter()
+    syncs = count_syncs(lambda: held.append(model.prepare(trees)))
+    prepare_s = time.perf_counter() - t0
+    sched = held[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    syncs += count_syncs(lambda: held.append(model.run_epochs(
+        sched, RNTN_EPOCHS)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = held[1].cpu().numpy()
+    enc = model.encode(trees)
+    nodes = int((enc.kind > 0).sum())
+    state = dict(model._params), dict(model._adagrad_hist)
+    prof = device_profile(lambda: model.run_epochs(sched, 1), iters=2,
+                          groups=RNTN_GROUPS)
+    model._params, model._adagrad_hist = state
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (*model.params().values(),
+                           *model._adagrad_hist.values()))
+    depth = max(t.depth() for t in trees)
+    rec = {"trees": len(trees), "nodes": nodes, "epochs": RNTN_EPOCHS,
+           "words": len(model.word_index),
+           "params": model.num_parameters(),
+           "mean_length": float(np.mean([len(t.tokens()) for t in trees])),
+           "levels": sched.n_levels, "tallest_depth": depth,
+           "max_nodes": enc.max_nodes,
+           "level_sizes": [sched.n_pre] + [lv.stop - lv.start
+                                           for lv in sched.levels],
+           "prepare_s": prepare_s, "epochs_s": wall,
+           "ms_per_epoch": wall * 1e3 / RNTN_EPOCHS,
+           "trees_per_s": len(trees) * RNTN_EPOCHS / wall,
+           "nodes_per_s": nodes * RNTN_EPOCHS / wall,
+           "kernels_per_epoch": prof.get("kernels_per_call"),
+           "device_ms_per_epoch": prof.get("device_ms_per_call"),
+           "busy_share": prof.get("device_busy_share"), "profile": prof,
+           "syncs_before_read": syncs, "loss_epoch_1": float(losses[0]),
+           "loss_last_epoch": float(losses[-1]), "finite": finite}
+    rec["ok"] = bool(syncs == 0 and finite and losses[-1] < losses[0]
+                     and sched.n_levels == depth < enc.max_nodes
+                     and "device_ms_per_call" in prof)
+    return rec, model
+
+
+def rntn_node_errs(trees_a, trees_b) -> dict:
+    """Max |a - b| over the internal nodes of matching trees, relative to
+    the largest |b| (vectors, predictions), and each error's |a - b| /
+    max(1, |b|)."""
+    vec = pred = err = 0.0
+    vec_scale = pred_scale = 1e-30
+    for ta, tb in zip(trees_a, trees_b):
+        for na, nb in zip(rntn_internal(ta), rntn_internal(tb)):
+            vec = max(vec, float(np.abs(na.vector - nb.vector).max()))
+            vec_scale = max(vec_scale, float(np.abs(nb.vector).max()))
+            pred = max(pred, float(np.abs(na.prediction
+                                          - nb.prediction).max()))
+            pred_scale = max(pred_scale, float(np.abs(nb.prediction).max()))
+            err = max(err, abs(na.error - nb.error) / max(1.0, abs(nb.error)))
+    return {"vectors": vec / vec_scale, "predictions": pred / pred_scale,
+            "errors": err}
+
+
+def rntn_inference(device, corpus, model, seed) -> dict:
+    """(c) output on the test trees in one batched forward; predict and
+    forward_propagate_tree on RNTN_PROBES of them, against output's roots
+    and against float32 and float64 CPU copies' per-node values. The
+    trained model is itself sensitive to float32 rounding (PR 15 run 1,
+    all 2,210 test trees: the card's predict against output up to 2.2e-5
+    at a root, card against CPU vectors 3.4e-4; on the CPU, float32
+    against float64 vectors 2.0e-4 and roots 4.9e-6), so each bound is
+    RNTN_TOL's or RNTN_SLACK times the CPU's own float32 error against
+    float64 on the same trees, whichever is larger."""
+    from deeplearning4j_tpu_torch.nlp import RNTN
+
+    test = corpus["test"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs = model.output(test)
+    output_ms = (time.perf_counter() - t0) * 1e3
+    gold = np.array([t.gold_label for t in test])
+    pred = probs.argmax(1)
+    copies = {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        m = RNTN(num_hidden=RNTN_HIDDEN, num_outs=SST_CLASSES, seed=seed,
+                 device="cpu")
+        m.word_index = dict(model.word_index)
+        m._params = {k: v.detach().cpu().to(dtype)
+                     for k, v in model.params().items()}
+        copies[name] = m
+    all_roots = {k: m.output(test) for k, m in copies.items()}
+    probes = np.random.RandomState(seed + 21).choice(
+        len(test), RNTN_PROBES, replace=False)
+    trees = {k: [test[i].clone() for i in probes]
+             for k in ("card", "f32", "f64")}
+    predict_equal = sum(model.predict(t) == int(pred[i])
+                        for t, i in zip(trees["card"], probes))
+    for k in ("f32", "f64"):
+        for t in trees[k]:
+            copies[k].forward_propagate_tree(t)
+    root_err = max(float(np.abs(t.prediction - probs[i]).max())
+                   for t, i in zip(trees["card"], probes))
+    f32_root = max(float(np.abs(a.prediction - b.prediction).max())
+                   for a, b in zip(trees["f32"], trees["f64"]))
+    card_cpu = rntn_node_errs(trees["card"], trees["f32"])
+    f32_f64 = rntn_node_errs(trees["f32"], trees["f64"])
+    counts = np.bincount(gold, minlength=SST_CLASSES)
+    bounds = {"root": max(RNTN_TOL["root"], RNTN_SLACK * f32_root),
+              **{k: max(RNTN_TOL["nodes"], RNTN_SLACK * v)
+                 for k, v in f32_f64.items()}}
+    rec = {"test_trees": len(test), "output_ms": output_ms,
+           "root_accuracy": float((pred == gold).mean()),
+           "majority_rate": float(counts.max() / counts.sum()),
+           "root_classes": counts.tolist(), "probes": RNTN_PROBES,
+           "predict_equal_output": int(predict_equal),
+           "root_abs_err": root_err, "card_vs_cpu": card_cpu,
+           "cpu_f32_vs_f64": {"root": f32_root, **f32_f64},
+           "bounds": bounds,
+           "all_roots_card_vs_cpu": float(np.abs(
+               probs - all_roots["f32"]).max()),
+           "all_roots_f32_vs_f64": float(np.abs(
+               all_roots["f32"] - all_roots["f64"]).max())}
+    rec["ok"] = bool(predict_equal == RNTN_PROBES
+                     and root_err <= bounds["root"]
+                     and all(card_cpu[k] <= bounds[k] for k in card_cpu)
+                     and probs.shape == (len(test), SST_CLASSES)
+                     and np.isfinite(probs).all())
+    return rec
+
+
+def rntn_internal(tree) -> list:
+    """Internal nodes in a fixed order (pre-order)."""
+    if tree.is_leaf():
+        return []
+    out = [tree]
+    if not tree.is_preterminal():
+        for c in tree.children:
+            out.extend(rntn_internal(c))
+    return out
+
+
+def rntn_annotators(corpus) -> dict:
+    """(d) The HMM tagger trained on the train yields with their words'
+    syntactic labels, tagging the test yields; the lexicon of the seeded
+    polarities classifying them; annotate_windows over one sentence."""
+    from deeplearning4j_tpu_torch.nlp.pos import HmmPosTagger
+    from deeplearning4j_tpu_torch.nlp.sentiment import SentimentLexicon
+    from deeplearning4j_tpu_torch.nlp.windows import annotate_windows
+
+    tags = corpus["tags"]
+
+    def tagged(tree):
+        return [(w, SYNTAX_LABELS[tags[int(w[1:])]]) for w in tree.tokens()]
+
+    t0 = time.perf_counter()
+    tagger = HmmPosTagger().train([tagged(t) for t in corpus["train"]])
+    train_s = time.perf_counter() - t0
+    yields = [t.tokens() for t in corpus["test"]]
+    n_tokens = sum(map(len, yields))
+    t0 = time.perf_counter()
+    got = [tagger.tag(toks) for toks in yields]
+    tag_s = time.perf_counter() - t0
+    truth = [[tag for _, tag in tagged(t)] for t in corpus["test"]]
+    correct = sum(a == b for g, tr in zip(got, truth) for a, b in zip(g, tr))
+    lex = SentimentLexicon({f"w{w}": p / 2.0 for w, p in
+                            enumerate(corpus["polarity"]) if p})
+    t0 = time.perf_counter()
+    classes = [lex.classify_tokens(toks) for toks in yields]
+    lex_s = time.perf_counter() - t0
+    wins = annotate_windows(yields[0], 5, tagger=tagger, lexicon=lex)
+    rec = {"train_sentences": len(corpus["train"]), "train_s": train_s,
+           "test_tokens": n_tokens, "tag_tokens_per_s": n_tokens / tag_s,
+           "tag_accuracy": correct / n_tokens,
+           "lexicon_tokens_per_s": n_tokens / lex_s,
+           "lexicon_classes": {c: classes.count(c) for c in sorted(
+               set(classes))},
+           "windows": len(wins), "window_tags": wins[0].tags,
+           "window_label": wins[0].label}
+    first = tagger.tag(yields[0])
+    rec["ok"] = (len(wins) == len(yields[0]) and correct > 0
+                 and [w.focus_tag() for w in wins] == first)
+    return rec
+
+
+def phase_rntn(device, seed, shared=None):
+    """Phase 21; see the module docstring. `shared` receives the trained
+    parameters for phase 22."""
+    before = {**flash_counts(), "paged_decode": paged.launches}
+    t0 = time.perf_counter()
+    corpus = sst_corpus(seed)
+    out = {"corpus_s": time.perf_counter() - t0,
+           "splits": {k: len(corpus[k]) for k in SST_SPLITS}}
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = rntn_card_vs_cpu(device, corpus, seed)
+    out["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["fit"], model = rntn_fit(device, corpus, seed)
+    out["fit"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["inference"] = rntn_inference(device, corpus, model, seed)
+    out["inference"]["seconds"] = time.perf_counter() - t0
+    out["annotators"] = rntn_annotators(corpus)
+    if shared is not None:
+        shared["rntn_params"] = model.params()
+    # the tree path reaches none of K1-K4
+    after = {**flash_counts(), "paged_decode": paged.launches}
+    out["k1_k4_launches"] = {k: after[k] - before[k] for k in after}
+    out["card"] = nvidia_smi()
+    out["ok"] = (all(out[k]["ok"] for k in ("card_vs_cpu", "fit",
+                                            "inference", "annotators"))
+                 and not any(out["k1_k4_launches"].values()))
+    return out
+
+
+# -------------------------------------------------------------- clusters
+KMEANS_K, KMEANS_ITERS, KMEANS_TOL = 20, 100, 1e-4
+#: assignments: a point may differ only where its two nearest squared
+#: distances are this close (relative); centroids of the largest |entry|
+KMEANS_TIE, KMEANS_CENTROID_TOL = 1e-5, 1e-4
+TSNE_PER_TOPIC, TSNE_CHECK_ITERS, TSNE_TOL = 100, 10, 1e-4
+BH_POINTS, KNN_K, KNN_QUERIES = 256, 10, 64
+CLUSTER_GROUPS = {"gemm": ("gemm", "gemv", "nvjet", "Kernel2", "dot_kernel"),
+                  "reduce": ("reduce_kernel",),
+                  "elementwise": ("elementwise",)}
+
+
+def knn_topic_agreement(points, topics, k=10) -> float:
+    """Mean share of each point's k nearest neighbours (euclidean, itself
+    excluded) with its own topic."""
+    x = np.asarray(points, np.float64)
+    sq = (x * x).sum(1)
+    d = sq[:, None] + sq[None, :] - 2 * x @ x.T
+    np.fill_diagonal(d, np.inf)
+    nn = np.argpartition(d, k, axis=1)[:, :k]
+    return float((topics[nn] == topics[:, None]).mean())
+
+
+def cluster_kmeans(device, x, topics, seed) -> dict:
+    """(a) k-means card against CPU; ms and kernels an iteration."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering.kmeans import lloyd_step
+
+    kw = dict(k=KMEANS_K, max_iterations=KMEANS_ITERS, tol=KMEANS_TOL,
+              seed=seed)
+    t0 = time.perf_counter()
+    cpu = KMeansClustering(device="cpu", **kw).fit(x)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = KMeansClustering(device=device, **kw).fit(x)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card._init_centroids(x, np.random.RandomState(seed))
+    seeding_s = time.perf_counter() - t0
+    a_cpu, a_card = cpu.predict(x), card.predict(x)
+    d2 = ((x[:, None, :].astype(np.float64)
+           - cpu.centroids[None].astype(np.float64)) ** 2).sum(-1)
+    two = np.sort(d2, axis=1)[:, :2]
+    tie = (two[:, 1] - two[:, 0]) <= KMEANS_TIE * two[:, 1]
+    differ = a_cpu != a_card
+    cerr = float(np.abs(card.centroids - cpu.centroids).max()
+                 / np.abs(cpu.centroids).max())
+    xt = torch.from_numpy(x).to(device)
+    ct = torch.from_numpy(card.centroids).to(device)
+    prof = device_profile(lambda: lloyd_step(xt, ct), iters=10,
+                          groups=CLUSTER_GROUPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = ct
+    for _ in range(card.n_iter_):  # as fit iterates: a step, a read
+        c, _, shift = lloyd_step(xt, c)
+        float(shift)
+    iter_ms = (time.perf_counter() - t0) * 1e3 / card.n_iter_
+    purity = sum(np.bincount(topics[a_card == c]).max()
+                 for c in np.unique(a_card)) / len(x)
+    rec = {"points": list(x.shape), "k": KMEANS_K,
+           "iterations_cpu": cpu.n_iter_, "iterations_card": card.n_iter_,
+           "fit_s_cpu": cpu_s, "fit_s_card": card_s,
+           "seeding_s": seeding_s, "ms_per_iteration": iter_ms,
+           "kernels_per_iteration": prof.get("kernels_per_call"),
+           "device_ms_per_iteration": prof.get("device_ms_per_call"),
+           "busy_share": prof.get("device_busy_share"), "profile": prof,
+           "assign_differ": int(differ.sum()),
+           "assign_differ_not_tie": int((differ & ~tie).sum()),
+           "centroid_rel_err": cerr, "topic_purity": float(purity)}
+    rec["ok"] = (rec["assign_differ_not_tie"] == 0
+                 and cerr <= KMEANS_CENTROID_TOL)
+    return rec
+
+
+def cluster_tsne(device, x, topics, seed):
+    """(b) Exact t-SNE at the JAX package's defaults: card against CPU for
+    the first iterations from the same start, then the whole run on the
+    card. Returns (record, embedding)."""
+    from deeplearning4j_tpu_torch.plot import Tsne
+
+    card = Tsne(seed=seed, device=device)
+    cpu = Tsne(seed=seed, device="cpu")
+    n = x.shape[0]
+    y0 = card._initial_y(n)
+    t0 = time.perf_counter()
+    p_host = cpu.affinities(x)
+    affinity_s = time.perf_counter() - t0
+    p = p_host.to(device)
+    ys = {}
+    for name, t, start in (("cpu", cpu, y0), ("card", card, y0),
+                           ("cpu_nudged", cpu,
+                            np.nextafter(y0, np.float32(np.inf)))):
+        y = torch.from_numpy(np.array(start)).to(t.device)
+        pt = p_host if t is cpu else p
+        ys[name] = t.iterate(pt, y, torch.zeros_like(y), 0,
+                             TSNE_CHECK_ITERS)[0].cpu().numpy()
+    scale = float(np.abs(ys["cpu"]).max())
+    err = float(np.abs(ys["card"] - ys["cpu"]).max()) / scale
+    chaos = float(np.abs(ys["cpu_nudged"] - ys["cpu"]).max()) / scale
+    y = torch.from_numpy(y0).to(device)
+    v = torch.zeros_like(y)
+    held = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    syncs = count_syncs(lambda: held.append(card.iterate(p, y, v, 0,
+                                                         card.n_iter)))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    emb = held[0][0].cpu().numpy()
+    prof = device_profile(lambda: card.iterate(p, y, v, 200, 210), iters=2,
+                          groups=CLUSTER_GROUPS)
+    rec = {"points": n, "perplexity": card.perplexity,
+           "iterations": card.n_iter, "affinity_s": affinity_s,
+           "loop_s": loop_s, "ms_per_iteration": loop_s * 1e3 / card.n_iter,
+           "kernels_per_iteration": (prof.get("kernels_per_call") or 0) / 10,
+           "device_ms_per_iteration":
+               (prof.get("device_ms_per_call") or 0) / 10,
+           "busy_share": prof.get("device_busy_share"), "profile": prof,
+           "check_iterations": TSNE_CHECK_ITERS, "card_vs_cpu_rel": err,
+           "cpu_vs_cpu_one_ulp_rel": chaos, "syncs_in_loop": syncs,
+           "finite": bool(np.isfinite(emb).all()),
+           "knn_topic_agreement_2d": knn_topic_agreement(emb, topics,
+                                                         KNN_K),
+           "knn_topic_agreement_128d": knn_topic_agreement(x, topics,
+                                                           KNN_K)}
+    rec["ok"] = (err <= TSNE_TOL and syncs == 0 and rec["finite"]
+                 and "device_ms_per_call" in prof)
+    return rec, emb
+
+
+def cluster_indexes(x) -> dict:
+    """(e) KD-tree and VP-tree k-NN against brute force."""
+    from deeplearning4j_tpu_torch.clustering import KDTree, VPTree
+
+    pts = x.astype(np.float64)
+    rng = np.random.RandomState(22)
+    queries = pts[rng.choice(len(pts), KNN_QUERIES, replace=False)] \
+        + rng.randn(KNN_QUERIES, pts.shape[1]) * 0.01
+    t0 = time.perf_counter()
+    kd = KDTree.build(pts)
+    vp = VPTree(pts, seed=0)
+    build_s = time.perf_counter() - t0
+    kd_ok = vp_ok = 0
+    t0 = time.perf_counter()
+    for q in queries:
+        d = np.linalg.norm(pts - q, axis=1)
+        want = np.argsort(d)[:KNN_K]
+        got_kd = kd.knn(q, KNN_K)
+        kd_ok += bool(np.allclose([dd for dd, _ in got_kd], d[want],
+                                  rtol=1e-12, atol=0)
+                      and all(np.array_equal(pt, pts[i])
+                              for (_, pt), i in zip(got_kd, want)))
+        got_vp = vp.knn(q, KNN_K)
+        vp_ok += [i for _, i in got_vp] == want.tolist()
+    query_s = time.perf_counter() - t0
+    return {"points": len(pts), "queries": KNN_QUERIES, "k": KNN_K,
+            "build_s": build_s, "query_s": query_s, "kdtree_equal": kd_ok,
+            "vptree_equal": vp_ok,
+            "ok": kd_ok == vp_ok == KNN_QUERIES}
+
+
+def tsne_points(vecs) -> np.ndarray:
+    """Rows of config 3c's vectors for t-SNE: the TSNE_PER_TOPIC most
+    frequent words of each topic (labels left out)."""
+    is_word = np.array([not w.startswith("__label__")
+                        for w in vecs["words"]])
+    return np.concatenate([
+        idx[np.argsort(-vecs["counts"][idx], kind="stable")[:TSNE_PER_TOPIC]]
+        for idx in (np.flatnonzero(is_word & (vecs["topics"] == t))
+                    for t in range(PV_TOPICS))])
+
+
+def barnes_hut_points(vecs, seed) -> np.ndarray:
+    pick = tsne_points(vecs)
+    return pick[np.random.RandomState(seed + 22).choice(
+        len(pick), BH_POINTS, replace=False)]
+
+
+def barnes_hut_embedding(points, seed):
+    """(c)'s host run, in a process of its own: (embedding, seconds)."""
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne
+
+    t0 = time.perf_counter()
+    emb = BarnesHutTsne(seed=seed).calculate(points)
+    return emb, time.perf_counter() - t0
+
+
+def start_barnes_hut(vecs, seed):
+    """Start (c) in a spawned process (host numpy for ~2 minutes), so it
+    runs beside phase 21 and the rest of phase 22: (pool, future)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    pts = vecs["vectors"][barnes_hut_points(vecs, seed)]
+    return pool, pool.submit(barnes_hut_embedding, pts, seed)
+
+
+def phase_clusters(device, seed, shared):
+    """Phase 22; see the module docstring. Takes (c) from the process
+    `start_barnes_hut` started, when `shared` holds one."""
+    from deeplearning4j_tpu_torch.datasets.api import DataSet
+    from deeplearning4j_tpu_torch.plot import serve_coords
+    from deeplearning4j_tpu_torch.utils import from_bytes, to_bytes
+    from deeplearning4j_tpu_torch.utils.interop import to_device
+
+    before = {**flash_counts(), "paged_decode": paged.launches}
+    vecs = shared["config3c"]
+    x, topics = vecs["vectors"], vecs["topics"]
+    out = {}
+    t0 = time.perf_counter()
+    out["kmeans"] = cluster_kmeans(device, x, topics, seed)
+    out["kmeans"]["seconds"] = time.perf_counter() - t0
+    pick = tsne_points(vecs)
+    t0 = time.perf_counter()
+    out["tsne"], emb = cluster_tsne(device, x[pick], topics[pick], seed)
+    out["tsne"]["seconds"] = time.perf_counter() - t0
+    pool, future = shared.pop("barnes_hut", None) or start_barnes_hut(
+        vecs, seed)
+    t0 = time.perf_counter()
+    try:
+        bh, bh_s = future.result()
+    finally:
+        pool.shutdown()
+    bh_topics = topics[barnes_hut_points(vecs, seed)]
+    out["barnes_hut"] = {"points": BH_POINTS, "iterations": 300,
+                         "seconds": bh_s,
+                         "waited_s": time.perf_counter() - t0,
+                         "knn_topic_agreement_2d": knn_topic_agreement(
+                             bh, bh_topics, KNN_K),
+                         "ok": bool(np.isfinite(bh).all())
+                         and bh.shape == (BH_POINTS, 2)}
+    labels = [f"t{t}" for t in topics[pick]]
+    handle = serve_coords(emb, labels=labels)
+    try:
+        data = json.loads(http_get(
+            f"http://127.0.0.1:{handle.port}/api/coords")[1])
+    finally:
+        handle.close()
+    out["render_server"] = {
+        "coords": len(data["coords"]),
+        "ok": (len(data["coords"]) == len(pick)
+               and data["labels"] == labels
+               and np.allclose(data["coords"], emb.astype(np.float64))
+               and not handle.thread.is_alive())}
+    t0 = time.perf_counter()
+    out["indexes"] = cluster_indexes(x)
+    out["indexes"]["seconds"] = time.perf_counter() - t0
+    onehot = np.eye(PV_TOPICS, dtype=np.float32)[topics]
+    f, y = to_device(DataSet(x, onehot), device)
+    out["interop"] = {"device": str(f.device), "shapes": [list(f.shape),
+                                                           list(y.shape)],
+                      "ok": f.is_cuda and y.is_cuda and bool(torch.equal(
+                          f.cpu(), torch.from_numpy(x)))}
+    params = shared["rntn_params"]
+    back = from_bytes(to_bytes(params))
+    out["serialization"] = {
+        "bytes": len(to_bytes(params)), "tables": sorted(back),
+        "ok": set(back) == set(params) and all(
+            np.array_equal(back[k].view(np.uint32),
+                           params[k].cpu().numpy().view(np.uint32))
+            for k in params)}
+    after = {**flash_counts(), "paged_decode": paged.launches}
+    out["k1_k4_launches"] = {k: after[k] - before[k] for k in after}
+    out["card"] = nvidia_smi()
+    out["ok"] = (all(out[k]["ok"] for k in (
+        "kmeans", "tsne", "barnes_hut", "render_server", "indexes",
+        "interop", "serialization"))
+        and not any(out["k1_k4_launches"].values()))
     return out
 
 
@@ -6153,13 +6887,18 @@ def main(argv=None) -> int:
     ring_shape = ring_kernel_timing(device, timer, args.seed)
     par["kernel_timing_seconds"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    nlp = phase_nlp(device, args.seed)
-    nlp["seconds"] = time.perf_counter() - t0
-    emit({"phase": "nlp", **nlp})
-    record["nlp"] = nlp
-    if not nlp["ok"]:
-        raise AssertionError(f"nlp failed: {nlp}")
+    for name, fn in (("nlp", phase_nlp), ("rntn", phase_rntn),
+                     ("clusters", phase_clusters)):
+        t0 = time.perf_counter()
+        res = fn(device, args.seed, shared)
+        res["seconds"] = time.perf_counter() - t0
+        emit({"phase": name, **res})
+        record[name] = res
+        if not res["ok"]:
+            raise AssertionError(f"{name} failed: {res}")
+        if name == "nlp":  # phase 22's host Barnes-Hut, beside phase 21
+            shared["barnes_hut"] = start_barnes_hut(shared["config3c"],
+                                                    args.seed)
 
     k1, k4 = kernels
     sf = record["serve_features"]["launches_by_path"]
@@ -6207,8 +6946,10 @@ def main(argv=None) -> int:
                                  ml_shape[row["name"]]["max_abs_err"],
                                  *(r["max_abs_err"] for r in
                                    ring_shape[row["name"]].values()))
-    for row in (k1, *bwd_rows, k4):  # 0: the word-vector path has none
-        row["launches_by_path"]["nlp"] = nlp["k1_k4_launches"][row["name"]]
+    for row in (k1, *bwd_rows, k4):  # 0: these paths have none
+        for path in ("nlp", "rntn", "clusters"):
+            row["launches_by_path"][path] = \
+                record[path]["k1_k4_launches"][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     kernels = [k1, *bwd_rows, k4]
     emit({"phase": "main_path_steps", **steps})

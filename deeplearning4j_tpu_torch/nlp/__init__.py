@@ -14,10 +14,11 @@ the device: gathers, a batched dot, and the gradients summed into the
 tables by `index_add_`. The trainers take `device=` (None = the card,
 raising without one).
 
-Not here yet: the constituency trees and the RNTN (`Tree`, `binarize`,
-`parse_tree`, `RNTN`, the JAX package's `nlp/tree.py` and `nlp/rntn.py`),
-with the sentiment and POS models (`nlp/sentiment.py`, `nlp/pos.py`);
-they come with the next slice.
+The constituency trees (`Tree`, `binarize`, `parse_tree`, `nlp/tree.py`)
+and the RNTN over them (`nlp/rntn.py`: a level schedule on the device,
+one batched step a tree level), with the sentiment lexicon
+(`nlp/sentiment.py`) and the HMM POS tagger (`nlp/pos.py`), complete the
+JAX package's `nlp/`.
 """
 
 from deeplearning4j_tpu_torch.nlp.tokenization import (  # noqa: F401
@@ -59,3 +60,9 @@ from deeplearning4j_tpu_torch.nlp.vectorizers import (  # noqa: F401
     BagOfWordsVectorizer,
     TfidfVectorizer,
 )
+from deeplearning4j_tpu_torch.nlp.tree import (  # noqa: F401
+    Tree,
+    binarize,
+    parse_tree,
+)
+from deeplearning4j_tpu_torch.nlp.rntn import RNTN  # noqa: F401

@@ -12,7 +12,10 @@ bit; on the way back a bfloat16 tensor becomes float32 numpy, since
 plain numpy has no bfloat16. The word-vector models cross with
 `word2vec_tables_from_jax` (syn0 and syn1 / syn1neg) and
 `glove_state_from_jax` (GloVe's {"w", "c", "bw", "bc"} and its AdaGrad
-accumulators).
+accumulators). The RNTN's stacked parameters ({"W", "Wu", "T", "Wb",
+"E"}) cross with `rntn_params_from_jax` / `rntn_params_to_numpy`, and
+`rntn_state_from_jax` installs them into a port `RNTN` with the JAX
+model's word and category indexes.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from deeplearning4j_tpu_torch import default_device
 __all__ = ["params_from_jax", "params_to_numpy", "params_to_device",
            "tree_map", "multilayer_params_from_jax",
            "multilayer_params_to_numpy", "word2vec_tables_from_jax",
-           "glove_state_from_jax"]
+           "glove_state_from_jax", "rntn_params_from_jax",
+           "rntn_params_to_numpy", "rntn_state_from_jax"]
 
 
 def tree_map(fn, tree):
@@ -150,4 +154,48 @@ def glove_state_from_jax(model, params, accum=None):
                      for k, p in model._params.items()} if accum is None
                     else {k: _float32_on(accum[k], model.device)
                           for k in GLOVE_PARAMS})
+    return model
+
+
+RNTN_PARAMS = ("W", "Wu", "T", "Wb", "E")
+
+
+def _check_rntn(tree) -> None:
+    if not {"W", "Wu", "E"} <= set(tree) <= set(RNTN_PARAMS):
+        raise ValueError(f"RNTN parameters are W, Wu, E and optionally T, "
+                         f"Wb; got {sorted(tree)}")
+
+
+def rntn_params_from_jax(params, device=None):
+    """A JAX RNTN's stacked parameters as numpy (e.g. `{k: np.asarray(v)
+    for k, v in jax_rntn.params().items()}`) -> float32 tensors on
+    `device` (None = the CUDA device)."""
+    _check_rntn(params)
+    device = default_device(device)
+    return {k: _float32_on(v, device) for k, v in params.items()}
+
+
+def rntn_params_to_numpy(params):
+    """A port RNTN's `params()` -> the same dict of float32 numpy arrays,
+    ready for the JAX package's `set_params` (as jnp arrays)."""
+    _check_rntn(params)
+    return params_to_numpy(params)
+
+
+def rntn_state_from_jax(model, params, word_index, cat_index=None,
+                        ccat_index=None, adagrad_hist=None):
+    """Install a JAX RNTN's parameters (numpy, as `rntn_params_from_jax`
+    takes them), its `word_index`, `cat_index` and `ccat_index` and,
+    optionally, its AdaGrad history (the same dict of names) into the
+    port `model`, on the model's device. Returns the model."""
+    model._params = rntn_params_from_jax(params, model.device)
+    model.word_index = dict(word_index)
+    model.cat_index = None if cat_index is None else dict(cat_index)
+    model.ccat_index = None if ccat_index is None else dict(ccat_index)
+    if adagrad_hist is not None:
+        if set(adagrad_hist) != set(params):
+            raise ValueError(f"the AdaGrad history has {sorted(adagrad_hist)}"
+                             f", the parameters {sorted(params)}")
+        adagrad_hist = rntn_params_from_jax(adagrad_hist, model.device)
+    model._adagrad_hist = adagrad_hist
     return model
