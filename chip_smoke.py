@@ -471,10 +471,42 @@ prints no result):
                   10,020 vectors equal to brute force. (f)
                   interop.to_device on the card. (g) phase 21's
                   parameters through utils.serialization bit-equal.
+23. elastic      — scaleout/ (item 14b). (a) DistributedRuntime with 2
+                  thread workers in this process trains phase 9's
+                  attention stack in float32 with momentum 0 (no worker
+                  state: the result does not depend on which thread
+                  takes which job) on the card: 8 jobs of 128 synthetic
+                  MNIST rows (4 sync waves), cold (networks built in the
+                  first jobs) then warm (the same performers), and the
+                  same jobs from the same params on the CPU; the final
+                  params card against CPU within multilayer_parity's
+                  1e-4, K1, K2 and K3 launched (> 0, the "elastic" path),
+                  K4 not (0); waves/s and jobs/s. (b) Out of process, BASELINE config
+                  1's widths (784-2048-1024-10) with plain SGD, 8 jobs of
+                  256 rows from a CSV: `python -m deeplearning4j_tpu_torch.
+                  cli train --elastic 2 --device cuda` uninterrupted (every
+                  job folded, no respawn: the reference); bench.py:2400's
+                  kill drill through TrainingSupervisor (SIGKILL a worker
+                  after its first job, respawn, params bit-identical to
+                  the CLI's) and capacity-loss drill (no respawn budget:
+                  resume from the last committed checkpoint resharded
+                  2 -> 1, the folded trace tiles the stream once); then
+                  bench.py:2592's supervisor-kill drill, `cli watchdog --
+                  train --elastic 2 --state-dir` with the supervisor
+                  SIGKILLed once a step commits (the next incarnation
+                  adopts the workers, no respawn, params bit-identical).
+                  Each worker's boot (spawn to connected) and first job,
+                  a probe process timing a worker's boot step by step
+                  (torch's import, the package's, the device context,
+                  the network), the kill-to-replacement-running time,
+                  the supervisor's restart time; no process of a drill
+                  left. The spawned workers' launches are not counted
+                  (processes of their own; the MLP path runs none of
+                  K1-K4).
 The phases 16-18 write under build/chip_smoke_cli/ and remove it; phase
 5f writes under build/chip_smoke_fleet/ and phase 17b under
-build/chip_smoke_pipeline/ and phase 19 under build/chip_smoke_parallel/,
-each removing it.
+build/chip_smoke_pipeline/, phase 19 under build/chip_smoke_parallel/
+and phase 23 under build/chip_smoke_elastic/, each removing it.
 
 Then, at each path's shapes: each kernel's time beside its plain
 version's, the library call's (SDPA for K1, SDPA's backward for K2 + K3;
@@ -485,8 +517,8 @@ causal), K1 at the model drafter's shape, and K1, K2 and K3 at the
 ring's shard shape (B*H 64, T 256, hd 128, causal and not). The kernels'
 launches are counted per path, a captured graph's replays included
 (serve, serve_features, spec, draft, http, disagg, fleet, train,
-multilayer, solver, guardian, cli, pipeline, parallel, ring, and nlp,
-rntn and clusters, which are 0).
+multilayer, solver, guardian, cli, pipeline, parallel, ring, elastic
+(K4 0), and nlp, rntn and clusters, which are 0).
 The last lines are the card as nvidia-smi gives it, the kernels' JSON
 line (with each kernel's design), and
 {"ok": true, "device": {...}}.
@@ -505,6 +537,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -2884,11 +2917,15 @@ def lenet_conf(compute_dtype):
                         .compute_dtype(compute_dtype))
 
 
-def attention_conf(compute_dtype):
+def attention_conf(compute_dtype, momentum=None):
     """Row-sequence MNIST: each image's 28 rows a sequence of 28-wide
     tokens, self-attention 28 -> 128 (one head of 128), flattened into a
-    softmax output 784 -> 10; SGD lr 0.05."""
-    return (NeuralNetConfiguration.builder()
+    softmax output 784 -> 10; SGD lr 0.05 (momentum the conf's default
+    unless given)."""
+    builder = NeuralNetConfiguration.builder()
+    if momentum is not None:
+        builder = builder.momentum(momentum)
+    return (builder
             .lr(0.05).use_adagrad(False).num_iterations(1)
             .batch_size(ML_TRAIN["attention"][0])
             .compute_dtype(compute_dtype)
@@ -6028,6 +6065,418 @@ def phase_clusters(device, seed, shared):
     return out
 
 
+# --------------------------------------------------------------- elastic
+ELASTIC_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_elastic"
+#: (a): jobs of the attention stack through DistributedRuntime, rows a job
+ELASTIC_INPROC = {"jobs": 8, "rows": 128, "workers": 2}
+#: (b): BASELINE config 1's widths (784-2048-1024-10) with plain SGD, so a
+#: worker keeps no optimizer state and a respawned one recomputes a job
+#: bit for bit; rows of the CSV, rows a job (8 jobs, 4 waves of 2)
+ELASTIC_MLP = {"rows": 2048, "batch": 256, "workers": 2}
+ELASTIC_LIMIT = 240.0  # seconds any one run or CLI call may take
+ELASTIC_PERFORMER = ("deeplearning4j_tpu_torch.scaleout.perform."
+                     "NeuralNetWorkPerformer")
+ELASTIC_DEVICE = "cuda"  # where the spawned workers train
+
+
+def elastic_mlp_conf():
+    return (NeuralNetConfiguration.builder()
+            .lr(0.05).n_in(784).activation_function("relu")
+            .optimization_algo("iteration_gradient_descent")
+            .num_iterations(1).use_adagrad(False).momentum(0.0)
+            .list(3).hidden_layer_sizes([2048, 1024])
+            .override(2, layer="output", loss_function="mcxent",
+                      activation_function="softmax", n_out=10)
+            .pretrain(False).build())
+
+
+def elastic_in_process(device, seed) -> dict:
+    """Phase 23 (a): DistributedRuntime, 2 thread workers, the attention
+    stack in float32 on the card (K1 forward, K2/K3 under autograd) and
+    the same jobs from the same params on the CPU. Momentum 0: a worker
+    keeps no optimizer state, so the result is a function of the jobs,
+    whichever thread takes which. The card runs twice: cold (each
+    worker builds its network and its thread its cuBLAS handle in its
+    first job) and warm (the same performers, new threads)."""
+    from deeplearning4j_tpu_torch.scaleout import (CollectionJobIterator,
+                                                   DistributedRuntime,
+                                                   NeuralNetWorkPerformer)
+
+    conf_json = attention_conf("float32", momentum=0.0).to_json()
+    n, rows = ELASTIC_INPROC["jobs"], ELASTIC_INPROC["rows"]
+    x, y = synthetic_mnist(n * rows, seed=seed + 23)
+    jobs = [DataSet(x[i * rows:(i + 1) * rows], y[i * rows:(i + 1) * rows])
+            for i in range(n)]
+    p0 = MultiLayerNetwork.from_config_json(conf_json,
+                                            device="cpu").params().numpy()
+
+    def run(performers):
+        rt = DistributedRuntime(
+            CollectionJobIterator(list(jobs)), iter(performers).__next__,
+            n_workers=len(performers), initial_params=p0)
+        t0 = time.perf_counter()
+        final = rt.run(timeout=ELASTIC_LIMIT)
+        return rt, final, time.perf_counter() - t0
+
+    def performers(dev):
+        return [NeuralNetWorkPerformer(conf_json, epochs=1, device=dev)
+                for _ in range(ELASTIC_INPROC["workers"])]
+
+    card = performers(str(device))
+    before = {**flash_counts(), "paged_decode": paged.launches}
+    cold_rt, cold, cold_wall = run(card)
+    rt, final, wall = run(card)
+    torch.cuda.synchronize()
+    after = {**flash_counts(), "paged_decode": paged.launches}
+    launches = {k: after[k] - before[k] for k in after}
+    cpu_rt, cpu_final, cpu_wall = run(performers("cpu"))
+    err = float(max(np.abs(final - cpu_final).max(),
+                    np.abs(cold - cpu_final).max()))
+    moved = float(np.abs(final - p0).max())
+    out = {"stack": "attention (self_attention 28 -> 128, 1 head; "
+                    "float32)",
+           "jobs": n, "rows_per_job": rows,
+           "workers": ELASTIC_INPROC["workers"], "waves": rt.waves,
+           "folded": sorted(rt.folded_seqs) == list(range(n)),
+           "card_cold_s": cold_wall, "card_s": wall, "cpu_s": cpu_wall,
+           "waves_per_s": rt.waves / wall, "jobs_per_s": n / wall,
+           "cold_waves_per_s": cold_rt.waves / cold_wall,
+           "warm_bit_equal_to_cold": bool(np.array_equal(final, cold)),
+           "cpu_waves_per_s": cpu_rt.waves / cpu_wall,
+           "params_card_vs_cpu_max_abs_diff": err,
+           "params_moved_max_abs": moved,
+           "tolerance": ML_PARITY_TOL["params"],
+           "launches": launches,
+           "expected_launches_each_of_k1_k3": 2 * n}
+    out["ok"] = (out["folded"] and rt.waves == cpu_rt.waves == cold_rt.waves
+                 and sorted(cpu_rt.folded_seqs) == list(range(n))
+                 and err <= ML_PARITY_TOL["params"] and moved > 0
+                 and all(launches[k] > 0 for k in flash_counts())
+                 and launches["paged_decode"] == 0)
+    return out
+
+
+class MemberWatch:
+    """Polls a supervisor's members: per worker, spawn -> connected
+    (boot_s) and connected -> first job reported (first_job_s), and the
+    kill -> replacement-running time of a drill."""
+
+    def __init__(self, sup):
+        self.sup = sup
+        self.seen = {}
+        self.killed_at = None
+        self.recovery_s = None
+        self._stop = False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop:
+            now = time.monotonic()
+            for rec in list(self.sup.members.values()):
+                s = self.seen.setdefault(rec.id, {"gen": rec.generation})
+                if "boot_s" not in s and rec.state in ("running",
+                                                       "suspect"):
+                    s["boot_s"] = now - rec.spawned_at
+                    s["_running_at"] = now
+                if ("first_job_s" not in s and rec.performed >= 1
+                        and "_running_at" in s and not rec.adopted):
+                    s["first_job_s"] = now - s["_running_at"]
+                if (self.killed_at is not None and self.recovery_s is None
+                        and rec.generation > 0 and rec.state == "running"):
+                    self.recovery_s = now - self.killed_at
+            time.sleep(0.005)
+
+    def close(self) -> dict:
+        self._stop = True
+        self._thread.join(timeout=5)
+        return {wid: {k: v for k, v in s.items() if not k.startswith("_")}
+                for wid, s in self.seen.items()}
+
+
+def elastic_supervisor(tag, jobs, conf_json, **kw):
+    from deeplearning4j_tpu_torch.scaleout import (CollectionJobIterator,
+                                                   ConfigRegistry,
+                                                   TrainingSupervisor,
+                                                   WorkerSpawner)
+
+    root = str(ELASTIC_DIR / f"reg_{tag}")
+    kw.setdefault("heartbeat_timeout", 10.0)
+    kw.setdefault("progress_timeout", 90.0)
+    return TrainingSupervisor(
+        CollectionJobIterator(list(jobs)), run_name=tag,
+        registry=ConfigRegistry(root), performer_class=ELASTIC_PERFORMER,
+        performer_conf={"conf_json": conf_json, "epochs": 1,
+                        "device": ELASTIC_DEVICE},
+        n_workers=ELASTIC_MLP["workers"], conf_json=conf_json,
+        spawner=WorkerSpawner(root, tag), **kw)
+
+
+def elastic_kill_drill(jobs, conf_json, ref) -> dict:
+    """bench.py:2400 (a): SIGKILL a worker after its first job; evict,
+    respawn, the wave re-forms; the params bit-equal to the reference."""
+    from deeplearning4j_tpu_torch.testing import chaos
+
+    sup = elastic_supervisor("kill", jobs, conf_json,
+                             checkpoint_dir=str(ELASTIC_DIR / "ck_kill"),
+                             max_respawns=2, respawn_backoff_s=0.05)
+    watch = MemberWatch(sup)
+    drill = {}
+
+    def killer():
+        deadline = time.time() + ELASTIC_LIMIT
+        while time.time() < deadline:
+            for rec in list(sup.members.values()):
+                if (rec.performed >= 1 and rec.proc is not None
+                        and rec.generation == 0):
+                    chaos.sigkill(rec.proc)
+                    watch.killed_at = time.monotonic()
+                    drill["killed"] = rec.id
+                    return
+            time.sleep(0.005)
+
+    threading.Thread(target=killer, daemon=True).start()
+    t0 = time.perf_counter()
+    final = sup.run(timeout=ELASTIC_LIMIT)
+    wall = time.perf_counter() - t0
+    workers = watch.close()
+    procs_ = [r.proc for r in sup.members.values() if r.proc is not None]
+    out = {**drill, "seconds": wall, "recovery_s": watch.recovery_s,
+           "respawns": sup.respawns_used, "waves": sup.waves,
+           "workers": workers,
+           "bit_identical": bool(np.array_equal(final, ref)),
+           "max_abs_diff": float(np.abs(final - ref).max()),
+           "trace_exact": sorted(sup.folded_seqs) == list(range(len(jobs))),
+           "no_process_left": all(group_gone(p) for p in procs_)}
+    out["ok"] = bool(drill.get("killed") and out["bit_identical"]
+                     and out["trace_exact"] and sup.respawns_used >= 1
+                     and out["recovery_s"] is not None
+                     and out["no_process_left"])
+    return out
+
+
+def elastic_capacity_drill(jobs, conf_json) -> dict:
+    """bench.py:2400 (b): SIGKILL with no respawn budget after the first
+    wave; resume from the last committed checkpoint resharded 2 -> 1;
+    the folded trace tiles the stream exactly once."""
+    from deeplearning4j_tpu_torch.testing import chaos
+
+    sup = elastic_supervisor("caploss", jobs, conf_json,
+                             checkpoint_dir=str(ELASTIC_DIR / "ck_lost"),
+                             max_respawns=0)
+    watch = MemberWatch(sup)
+    drill = {}
+
+    def killer():
+        deadline = time.time() + ELASTIC_LIMIT
+        while time.time() < deadline:
+            if sup.waves >= 1:
+                for rec in list(sup.members.values()):
+                    if rec.performed >= 1 and rec.proc is not None:
+                        chaos.sigkill(rec.proc)
+                        drill["killed"] = rec.id
+                        return
+            time.sleep(0.005)
+
+    threading.Thread(target=killer, daemon=True).start()
+    t0 = time.perf_counter()
+    final = sup.run(timeout=ELASTIC_LIMIT)
+    wall = time.perf_counter() - t0
+    workers = watch.close()
+    resume = sup.resume_events[-1] if sup.resume_events else {}
+    procs_ = [r.proc for r in sup.members.values() if r.proc is not None]
+    out = {**drill, "seconds": wall, "resume": resume, "workers": workers,
+           "trace_exact": sorted(sup.folded_seqs) == list(range(len(jobs))),
+           "finite": bool(final is not None and np.isfinite(final).all()),
+           "no_process_left": all(group_gone(p) for p in procs_)}
+    out["ok"] = bool(drill.get("killed") and out["trace_exact"]
+                     and out["finite"] and resume.get("resharded")
+                     and resume.get("survivors") == 1
+                     and out["no_process_left"])
+    return out
+
+
+BOOT_PROBE = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+import deeplearning4j_tpu_torch.scaleout.worker
+from deeplearning4j_tpu_torch.scaleout.perform import NeuralNetWorkPerformer
+t2 = time.perf_counter()
+torch.zeros(1, device=sys.argv[2]).sum().item()
+t3 = time.perf_counter()
+NeuralNetWorkPerformer().setup({"conf_json": open(sys.argv[1]).read(),
+                                "device": sys.argv[2]})
+torch.cuda.synchronize() if sys.argv[2] != "cpu" else None
+t4 = time.perf_counter()
+print(json.dumps({"import_torch_s": t1 - t0, "import_package_s": t2 - t1,
+                  "device_context_s": t3 - t2, "network_s": t4 - t3}))
+"""
+
+
+def worker_boot_probe(conf_path) -> dict:
+    """Where a spawned worker's boot goes: one `python -c` process that
+    does what `scaleout/worker.py` does before it connects (torch, the
+    package, the device's context, the performer's network), timed
+    step by step, beside its whole wall time."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", BOOT_PROBE, str(conf_path),
+                          ELASTIC_DEVICE], capture_output=True, text=True,
+                         timeout=ELASTIC_LIMIT)
+    out = {"wall_s": time.perf_counter() - t0, "rc": res.returncode}
+    if res.returncode == 0:
+        out.update(json.loads(res.stdout.strip().splitlines()[-1]))
+    return out
+
+
+def elastic_cli(argv, kill_when=None) -> tuple:
+    """A `python -m deeplearning4j_tpu_torch.cli` subprocess: (rc, JSON
+    lines, seconds, killed-at and watchdog restart times). `kill_when()`
+    true -> SIGKILL the first watchdog child (the supervisor)."""
+    from deeplearning4j_tpu_torch.testing import chaos
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli",
+         *[str(a) for a in argv]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(Path(__file__).resolve().parent))
+    children, killed = [], []
+    err_tail = []
+    threading.Thread(target=lambda: err_tail.extend(
+        proc.stderr.read().splitlines()[-20:]), daemon=True).start()
+
+    def killer():
+        deadline = time.time() + ELASTIC_LIMIT
+        while time.time() < deadline and not killed and proc.poll() is None:
+            if children and kill_when():
+                chaos.sigkill(children[0][0])
+                killed.append(time.monotonic())
+                return
+            time.sleep(0.02)
+
+    if kill_when is not None:
+        threading.Thread(target=killer, daemon=True).start()
+    lines = []
+    t0 = time.perf_counter()
+    try:
+        for line in proc.stdout:
+            if line.startswith("{"):
+                try:
+                    e = json.loads(line)
+                except ValueError:
+                    continue
+                lines.append(e)
+                if "watchdog_child" in e:
+                    children.append((e["watchdog_child"],
+                                     time.monotonic()))
+        rc = proc.wait(timeout=ELASTIC_LIMIT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    timing = {"seconds": time.perf_counter() - t0}
+    if killed and len(children) > 1:
+        timing["supervisor_restart_s"] = children[1][1] - killed[0]
+    if rc != 0:
+        timing["stderr_tail"] = err_tail
+    return rc, lines, timing, bool(killed)
+
+
+def elastic_out_of_process(device, seed) -> dict:
+    """Phase 23 (b): `cli train --elastic 2 --device cuda` over the MLP,
+    then bench.py:2400's kill and capacity-loss drills on the same jobs
+    through the supervisor, then bench.py:2592's supervisor-kill drill
+    (`watchdog -- train --elastic 2 --state-dir`)."""
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.checkpoint.format import list_steps
+    from deeplearning4j_tpu_torch.scaleout.checkpoint import \
+        load_checkpoint
+
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
+    conf_json = elastic_mlp_conf().to_json()
+    conf = ELASTIC_DIR / "conf.json"
+    conf.write_text(conf_json)
+    x, y = synthetic_mnist(ELASTIC_MLP["rows"], seed=seed + 230)
+    csv = ELASTIC_DIR / "data.csv"
+    np.savetxt(csv, np.hstack([x, y.argmax(1)[:, None]]), delimiter=",",
+               fmt="%.9g")
+    # the jobs exactly as the CLI cuts them from the CSV
+    xs, ys = cli._load_csv(str(csv), 1, 10)
+    bs = ELASTIC_MLP["batch"]
+    jobs = [DataSet(xs[i:i + bs], ys[i:i + bs])
+            for i in range(0, len(xs), bs)]
+    train = ["train", "--elastic", ELASTIC_MLP["workers"], "-i", csv,
+             "-m", conf, "--batch-size", bs, "--epochs", 1,
+             "--straggler-factor", 50, "--run-timeout", ELASTIC_LIMIT,
+             "--device", ELASTIC_DEVICE]
+    out = {"model": "784-2048-1024-10, SGD lr 0.05 (no updater state)",
+           "jobs": len(jobs), "rows_per_job": bs,
+           "workers": ELASTIC_MLP["workers"],
+           "kernel_launches": "not counted: the workers are processes of "
+                              "their own, and this MLP path runs none of "
+                              "K1-K4"}
+    out["worker_boot"] = worker_boot_probe(conf)
+    # -- the CLI, uninterrupted: the reference of every drill
+    ref_out = ELASTIC_DIR / "ref.ckpt"
+    rc, lines, timing, _ = elastic_cli(
+        train + ["-o", ref_out, "--checkpoint-dir", ELASTIC_DIR / "ck_ref"])
+    summary = next((e for e in reversed(lines) if "saved" in e), {})
+    ref = (load_checkpoint(str(ref_out), device="cpu")[0].params().numpy()
+           if rc == 0 else None)
+    out["cli"] = {"rc": rc, **timing, "summary": summary,
+                  "ok": bool(rc == 0 and summary.get("folded")
+                             == summary.get("jobs") == len(jobs)
+                             and summary.get("respawns") == 0
+                             and np.isfinite(summary.get("score", np.nan)))}
+    if ref is None:
+        out["ok"] = False
+        return out
+    out["kill_drill"] = elastic_kill_drill(jobs, conf_json, ref)
+    out["capacity_loss_drill"] = elastic_capacity_drill(jobs, conf_json)
+    # -- the supervisor SIGKILLed under the watchdog once a step commits
+    ck = ELASTIC_DIR / "ck_wd"
+    drill_out = ELASTIC_DIR / "drill.ckpt"
+    rc, lines, timing, killed = elastic_cli(
+        ["watchdog", "--max-restarts", 3, "--backoff", 0.2, "--"] + train
+        + ["-o", drill_out, "--state-dir", ELASTIC_DIR / "state",
+           "--checkpoint-dir", ck],
+        kill_when=lambda: bool(os.path.isdir(ck) and list_steps(str(ck))))
+    summary = next((e for e in reversed(lines) if "saved" in e), {})
+    wd = {"rc": rc, **timing, "killed": killed, "summary": summary,
+          "restarts": sum(1 for e in lines if "watchdog_restart" in e)}
+    if rc == 0:
+        got = load_checkpoint(str(drill_out), device="cpu")[0]
+        wd["bit_identical"] = bool(np.array_equal(got.params().numpy(),
+                                                  ref))
+    wd["ok"] = bool(rc == 0 and killed and wd.get("bit_identical")
+                    and summary.get("adopted", 0) >= 1
+                    and summary.get("respawns") == 0
+                    and summary.get("incarnation", 0) >= 1
+                    and summary.get("folded") == summary.get("jobs"))
+    out["supervisor_kill_drill"] = wd
+    out["ok"] = out["worker_boot"]["rc"] == 0 and all(
+        out[k]["ok"] for k in ("cli", "kill_drill", "capacity_loss_drill",
+                               "supervisor_kill_drill"))
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    return out
+
+
+def phase_elastic(device, seed, shared=None):
+    """Phase 23; see the module docstring."""
+    t0 = time.perf_counter()
+    out = {"in_process": elastic_in_process(device, seed)}
+    out["in_process"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["out_of_process"] = elastic_out_of_process(device, seed)
+    out["out_of_process"]["seconds"] = time.perf_counter() - t0
+    out["launches"] = out["in_process"]["launches"]
+    out["card"] = nvidia_smi()
+    out["ok"] = out["in_process"]["ok"] and out["out_of_process"]["ok"]
+    return out
+
+
 def device_profile(fn, iters: int, groups=None) -> dict:
     """Device time by kernel over `iters` calls (torch.profiler, CUDA
     activity only counted from kernel events), and the device's busy
@@ -6888,7 +7337,8 @@ def main(argv=None) -> int:
     par["kernel_timing_seconds"] = time.perf_counter() - t0
 
     for name, fn in (("nlp", phase_nlp), ("rntn", phase_rntn),
-                     ("clusters", phase_clusters)):
+                     ("clusters", phase_clusters),
+                     ("elastic", phase_elastic)):
         t0 = time.perf_counter()
         res = fn(device, args.seed, shared)
         res["seconds"] = time.perf_counter() - t0
@@ -6950,6 +7400,9 @@ def main(argv=None) -> int:
         for path in ("nlp", "rntn", "clusters"):
             row["launches_by_path"][path] = \
                 record[path]["k1_k4_launches"][row["name"]]
+        # K1-K3 > 0 and K4 0, gated in the phase
+        row["launches_by_path"]["elastic"] = \
+            record["elastic"]["launches"][row["name"]]
         row["launches"] = sum(row["launches_by_path"].values())
     kernels = [k1, *bwd_rows, k4]
     emit({"phase": "main_path_steps", **steps})

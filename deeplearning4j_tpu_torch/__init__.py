@@ -29,7 +29,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-__all__ = ["default_device"]
+__all__ = ["default_device", "NeuralNetConfiguration",
+           "MultiLayerConfiguration", "MultiLayerNetwork", "Evaluation"]
 
 
 def default_device(device=None) -> torch.device:
@@ -47,3 +48,17 @@ def default_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device} requested but no CUDA device "
                            f"is available")
     return device
+
+
+# The JAX package's top-level names. They come after `default_device`,
+# which `nn/multilayer.py` imports from this module.
+from deeplearning4j_tpu_torch.config import (  # noqa: E402,F401
+    MultiLayerConfiguration,
+    NeuralNetConfiguration,
+)
+from deeplearning4j_tpu_torch.eval.evaluation import (  # noqa: E402,F401
+    Evaluation,
+)
+from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: E402,F401
+    MultiLayerNetwork,
+)

@@ -22,7 +22,8 @@ import torch
 
 from deeplearning4j_tpu_torch.optimize.updater import UpdaterState
 
-__all__ = ["layer_slices", "flat_to_updater_state", "updater_state_to_flat"]
+__all__ = ["layer_slices", "flat_to_updater_state", "updater_state_to_flat",
+           "ravel_tree"]
 
 
 def _host(a) -> np.ndarray:
@@ -40,6 +41,17 @@ def _leaves(tree):
         return [(((k,) + p), leaf) for k in sorted(tree)
                 for p, leaf in _leaves(tree[k])]
     return [((), tree)]
+
+
+def ravel_tree(tree) -> np.ndarray:
+    """A parameter tree ({layer: {name: array}}, or one array) as one
+    flat host vector, leaves in sorted-key order: the packed vector the
+    JAX package's `ravel_pytree` gives for the same tree (bfloat16 leaves
+    widened to float32). Host reshapes only."""
+    parts = [_host(leaf).reshape(-1) for _, leaf in _leaves(tree)]
+    if not parts:
+        raise ValueError("ravel_tree: the tree holds no array leaf")
+    return np.concatenate(parts)
 
 
 def _size(leaf) -> int:

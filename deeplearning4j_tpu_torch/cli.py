@@ -21,15 +21,19 @@ Usage (CLI = `python -m deeplearning4j_tpu_torch.cli`):
     CLI batch   --url http://127.0.0.1:PORT -i prompts.jsonl -o out.jsonl
     CLI pipeline --checkpoint-dir ckpts/ --spawn-fleet -m model.ckpt \
                  --eval-data heldout.csv --state-dir state/ --cycles 10
+    CLI train   -i data.csv -m conf.json -o model.ckpt --elastic 2 \
+                --batch-size 50 --checkpoint-dir ckpts/ --device cpu
+    CLI watchdog --max-restarts 3 -- train --elastic 2 ... --state-dir S
 
 `-m` accepts a conf .json (fresh net), a single-file .ckpt, or a sharded
 checkpoint DIRECTORY for train/test/predict/eval. Checkpoints cross
 between this CLI and the JAX package's both ways.
 
-Device: `train`, `test`, `predict`, `eval`, `serve`, `fleet` and
-`pipeline` take `--device cuda|cpu` (default cuda, the counterpart of
-pointing the JAX CLI at a platform). With `cuda` and no CUDA device the command prints "no
-CUDA device" and exits 2; it never carries on on the CPU. `fleet` runs
+Device: `train` (`--elastic` too), `test`, `predict`, `eval`, `serve`,
+`fleet` and `pipeline` take `--device cuda|cpu` (default cuda, the
+counterpart of pointing the JAX CLI at a platform). With `cuda` and no
+CUDA device the command prints "no CUDA device" and exits 2; it never
+carries on on the CPU. `fleet` runs
 its router on the host and passes `--device` to every replica it spawns
 (an operator's `--serve-arg=--device` still wins, as the later argparse
 occurrence); a replica that cannot reach its device exits before it
@@ -53,11 +57,20 @@ on `--device`, and promotes it through a fleet (`--fleet-url`, or
 standalone /metrics endpoint, announced up front) and `--trace PATH` (a
 Chrome trace of the host spans, written on exit).
 
+`train --elastic N` runs the elastic supervisor (scaleout/supervisor.py)
+over N spawned `python -m deeplearning4j_tpu_torch.scaleout.worker`
+processes and passes `--device` into the performer's conf, so every
+worker, respawns included, trains on that device; the supervisor
+process itself uses the device only for the final score. `watchdog --
+<subcommand ...>` restarts a wrapped port subcommand under backoff while
+it exits non-zero; with `--state-dir` on the wrapped `train --elastic`
+each restart re-adopts the surviving workers.
+
 The parser takes every subcommand and flag of the JAX CLI, so an argv
-written for it parses. What is not ported yet (`watchdog` and train's
-`--elastic`, item 14b; the `--compile-cache` of train, serve, fleet and
-pipeline, and serve's `--warmup-plan PATH`, item 14c) prints the
-ROADMAP item that brings it and exits 2 before doing anything.
+written for it parses. What is not ported yet (the `--compile-cache` of
+train, serve, fleet and pipeline, and serve's `--warmup-plan PATH`, item
+14c) prints the ROADMAP item that brings it and exits 2 before doing
+anything.
 
 Input CSV: one row per example, features then (for train/test) one-hot or
 integer label in the last column(s) — controlled by --label-columns.
@@ -74,16 +87,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-#: subcommands of the JAX CLI that this port has not taken yet
-NOT_PORTED = {
-    "watchdog": "ROADMAP Queue 1 item 14b (control plane: scaleout/)",
-}
-
 #: train flags of the JAX CLI that this port has not taken yet:
 #: (args attribute, flag) -> ROADMAP item
 FLAGS_NOT_PORTED = {
-    ("elastic", "--elastic"): "ROADMAP Queue 1 item 14b (scaleout/: the "
-                              "elastic supervisor)",
     ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14c "
                                           "(compilecache/)",
 }
@@ -162,15 +168,6 @@ def _model_n_out(net) -> Optional[int]:
         return None
 
 
-def _not_ported(name: str):
-    def refuse(args) -> int:
-        print(f"`{name}` is not ported to deeplearning4j_tpu_torch yet: "
-              f"{NOT_PORTED[name]}", file=sys.stderr)
-        return 2
-
-    return refuse
-
-
 def _refused_flag(args, table=None, accepted=None) -> bool:
     """Print and return True when a flag that is not ported was given.
     `accepted` maps an attribute to the values that are ported (serve's
@@ -228,6 +225,8 @@ def cmd_train(args) -> int:
 
     if _refused_flag(args):
         return 2
+    if args.elastic:
+        return _cmd_train_elastic(args)
     if args.checkpoint_every is not None and not args.checkpoint_dir:
         # refusing beats a run the user believes is checkpointed
         print("--checkpoint-every needs --checkpoint-dir DIR "
@@ -297,6 +296,103 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _cmd_train_elastic(args) -> int:
+    """`train --elastic N`: the self-healing out-of-process path — a
+    TrainingSupervisor over N spawned workers with failure detection,
+    bounded respawn, straggler defense, and checkpoint-backed elastic
+    resume (docs/FAULT_TOLERANCE.md). `--device` goes into the
+    performer's conf: every worker trains there."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets.api import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.scaleout.api import CollectionJobIterator
+    from deeplearning4j_tpu_torch.scaleout.checkpoint import \
+        DefaultModelSaver
+    from deeplearning4j_tpu_torch.scaleout.registry import ConfigRegistry
+    from deeplearning4j_tpu_torch.scaleout.supervisor import (
+        TrainingSupervisor, WorkerSpawner)
+
+    if args.resume == "auto" and not args.checkpoint_dir:
+        # same refusal as the non-elastic path: silently starting a
+        # fresh run would discard progress the user asked to keep
+        print("--resume auto needs --checkpoint-dir DIR to discover "
+              "the latest committed step from", file=sys.stderr)
+        return 2
+    device = _device(args)
+    if device is None:
+        return 2
+    tele = _Telemetry(args)
+    if tele.metrics is not None:
+        # announce BEFORE the run (cmd_train's contract): an
+        # auto-assigned metrics port is useless once the run is over
+        print(json.dumps(tele.announce()), flush=True)
+    try:
+        net = _load_model(args.model, device)
+        conf_json = net.to_json()
+        x, y = _load_csv(args.input, args.label_columns, _model_n_out(net))
+        if y is None:
+            print("train requires labels (--label-columns >= 1)",
+                  file=sys.stderr)
+            return 2
+        bs = args.batch_size or getattr(net.conf, "batch_size", None) or 32
+        batches = [DataSet(x[i:i + bs], y[i:i + bs])
+                   for i in range(0, len(x), bs)]
+        jobs = [b for _ in range(args.epochs) for b in batches]
+        state_dir = getattr(args, "state_dir", None)
+        work = (state_dir or args.checkpoint_dir
+                or tempfile.mkdtemp(prefix="dl4j_elastic_"))
+        registry_root = os.path.join(work, "_registry")
+        # with a state dir the run name must be STABLE across control-
+        # plane incarnations: surviving workers rendezvous on it to
+        # reconnect, and the restarted supervisor re-registers it. A
+        # pid-scoped name is only safe when nothing outlives this
+        # process.
+        run_name = ("cli-elastic" if state_dir
+                    else f"cli-elastic-{os.getpid()}")
+        sup = TrainingSupervisor(
+            CollectionJobIterator(jobs), run_name=run_name,
+            registry=ConfigRegistry(registry_root),
+            performer_class=("deeplearning4j_tpu_torch.scaleout.perform."
+                             "NeuralNetWorkPerformer"),
+            performer_conf={"conf_json": conf_json, "epochs": 1,
+                            "device": args.device},
+            n_workers=args.elastic, conf_json=conf_json,
+            spawner=WorkerSpawner(registry_root, run_name),
+            checkpoint_dir=args.checkpoint_dir,
+            resume=args.resume,
+            max_respawns=args.max_respawns,
+            straggler_factor=args.straggler_factor,
+            keep_checkpoints=args.checkpoint_keep,
+            status_port=args.status_port,
+            state_dir=state_dir)
+        if sup.status_server is not None:
+            print(json.dumps({"status": sup.status_server.address,
+                              "workers": args.elastic}), flush=True)
+        final = sup.run(timeout=args.run_timeout)
+        trained = MultiLayerNetwork.from_config_json(
+            conf_json, params=np.asarray(final), device=device)
+        DefaultModelSaver(args.output).save(trained)
+        score = float(trained.score(x, y))
+        print(json.dumps({
+            "saved": args.output, "score": score,
+            "workers": args.elastic, "waves": sup.waves,
+            "jobs": len(jobs), "folded": len(sup.folded_seqs),
+            "respawns": sup.respawns_used,
+            "evictions": {k: int(c.value)
+                          for k, c in sup._m_evictions.items()
+                          if c.value},
+            "resumes": len(sup.resume_events),
+            "incarnation": sup.incarnation,
+            "adopted": sum(1 for e in sup.adoption_events
+                           if e["kind"] in ("adopted", "stray")),
+            **tele.close()}))
+        return 0
+    except BaseException:
+        tele.close()
+        raise
+
+
 def _resume_network(args, device):
     """`--resume auto` (or an explicit path): restore params + updater
     state + cursor from the newest COMMITTED step — no step dir named.
@@ -355,6 +451,97 @@ def _fit_resumed(net, x, y, args, saver, info) -> None:
                               if saver is not None else None),
             start_position=position, start_epoch=epoch,
             start_epoch_batch=epoch_batch)
+
+
+def cmd_watchdog(args) -> int:
+    """`watchdog -- <subcommand ...>`: restart-under-backoff wrapper so
+    the control plane itself is supervised (docs/FAULT_TOLERANCE.md
+    "Who watches the watcher"). Runs `python -m
+    deeplearning4j_tpu_torch.cli <subcommand ...>` and, while it exits
+    non-zero (crash, OOM-kill, SIGKILL), restarts it with exponential
+    backoff up to `--max-restarts` times. Paired with `--state-dir` on
+    the wrapped `train --elastic` / `fleet`, each restart re-adopts the
+    previous incarnation's journaled children instead of respawning
+    them.
+
+    The child is NOT placed in its own session and NOT registered for
+    the orphan sweep: the watchdog dying must never take the control
+    plane (or transitively the whole run) down with it."""
+    import signal
+    import subprocess
+    import time as _time
+
+    rest = list(args.cmd)
+    if rest and rest[0] == "--":
+        rest = rest[1:]
+    if not rest:
+        print("watchdog needs a wrapped subcommand: "
+              "watchdog [opts] -- train --elastic ... --state-dir DIR",
+              file=sys.stderr)
+        return 2
+    if rest[0] == "watchdog":
+        print("watchdog cannot wrap itself", file=sys.stderr)
+        return 2
+    restarts = 0
+    child = None
+
+    def forward(signum, _frame):
+        # operator stop is for the WHOLE plane: forward and stop
+        # restarting (a forwarded SIGTERM exits the child non-zero,
+        # which must not trigger a respawn)
+        if child is not None and child.poll() is None:
+            child.send_signal(signum)
+        raise KeyboardInterrupt
+
+    # both stop signals forward: a process manager signalling only the
+    # watchdog pid (no process-group fan-out like terminal Ctrl-C) must
+    # still reach the child so it can run its graceful handoff close
+    old_term = signal.signal(signal.SIGTERM, forward)
+    old_int = signal.signal(signal.SIGINT, forward)
+    try:
+        while True:
+            # the KeyboardInterrupt guard spans the WHOLE iteration —
+            # forward() raises from arbitrary main-thread points
+            # (mid-Popen, mid-print, mid-backoff), and every one of
+            # them must take the same stop-grace-then-kill exit, never
+            # an uncaught traceback that leaves the child unreaped
+            try:
+                child = subprocess.Popen(
+                    [sys.executable, "-m", "deeplearning4j_tpu_torch.cli"]
+                    + rest)
+                print(json.dumps({"watchdog_child": child.pid,
+                                  "restarts": restarts}), flush=True)
+                rc = child.wait()
+                if rc == 0:
+                    print(json.dumps({"watchdog_done": True,
+                                      "restarts": restarts}),
+                          flush=True)
+                    return 0
+                if restarts >= args.max_restarts:
+                    print(json.dumps({"watchdog_gave_up": True,
+                                      "rc": rc,
+                                      "restarts": restarts}),
+                          flush=True)
+                    return rc if rc > 0 else 1
+                backoff = min(args.backoff * (2 ** restarts),
+                              args.backoff_max)
+                restarts += 1
+                print(json.dumps({"watchdog_restart": restarts,
+                                  "rc": rc,
+                                  "backoff_s": round(backoff, 3)}),
+                      flush=True)
+                _time.sleep(backoff)
+            except KeyboardInterrupt:
+                if child is not None and child.poll() is None:
+                    try:
+                        child.wait(timeout=args.stop_grace)
+                    except subprocess.TimeoutExpired:
+                        child.kill()
+                        child.wait()
+                return 130
+    finally:
+        signal.signal(signal.SIGTERM, old_term)
+        signal.signal(signal.SIGINT, old_int)
 
 
 def cmd_test(args) -> int:
@@ -1523,7 +1710,7 @@ def build_parser() -> argparse.ArgumentParser:
                          help="the wrapped subcommand, after `--`: "
                               "e.g. `-- train --elastic 2 "
                               "--state-dir S ...`")
-    p_watch.set_defaults(fn=_not_ported("watchdog"))
+    p_watch.set_defaults(fn=cmd_watchdog)
 
     p_eval = sub.add_parser(
         "eval",

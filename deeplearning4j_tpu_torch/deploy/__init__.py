@@ -8,9 +8,8 @@ controller watches the checkpoint directory, gates each newly COMMITTED
 step on a held-out evaluation, and drives the fleet's canary reload,
 promoting on probe success and rolling back + quarantining on failure.
 Its own decisions journal through `StateFile` (controller.journal) so a
-killed controller restarts into the same verdict (`cli watchdog`, which
-restarts it automatically in the JAX package, is ROADMAP Queue 1 item
-14b).
+killed controller restarts into the same verdict (`cli watchdog -- pipeline
+... --state-dir S` restarts it automatically).
 """
 
 from deeplearning4j_tpu_torch.deploy.controller import (  # noqa: F401

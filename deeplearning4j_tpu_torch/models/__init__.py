@@ -7,10 +7,10 @@ from deeplearning4j_tpu_torch.models.conv import (  # noqa: F401
     ConvolutionDownSampleLayer)
 from deeplearning4j_tpu_torch.models.lstm import LSTM  # noqa: F401
 from deeplearning4j_tpu_torch.models.pretrain import (  # noqa: F401
-    RBM, AutoEncoder, RecursiveAutoEncoder)
+    RBM, AutoEncoder, RecursiveAutoEncoder, binomial_corruption)
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig, generate, init_transformer_params, transformer_logits)
 
 __all__ = ["ConvolutionDownSampleLayer", "LSTM", "RBM", "AutoEncoder",
-           "RecursiveAutoEncoder", "TransformerConfig", "generate",
+           "RecursiveAutoEncoder", "binomial_corruption", "TransformerConfig", "generate",
            "init_transformer_params", "transformer_logits"]

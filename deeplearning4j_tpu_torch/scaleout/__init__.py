@@ -1,11 +1,50 @@
-"""Scale-out pieces of the port: the single-file checkpoint tier
-(`scaleout/checkpoint.py`), the distributable-work API (`scaleout/api.py`),
-the in-memory state tracker the serving fleet uses as its health store
-(`scaleout/statetracker.py`), the work codec (`scaleout/rpc.py`) and the
-status endpoint the deployment controller serves (`scaleout/status.py`).
-The cluster runtime, workers, the tracker's RPC server and the rest of
-the JAX package's `scaleout/` are ROADMAP Queue 1 item 14b."""
+"""Scaleout: the distributed-training contract and runtimes, the
+counterpart of the JAX package's `scaleout/`.
 
+Parity: reference deeplearning4j-scaleout — the scaleout API (Job,
+WorkerPerformer, JobAggregator, StateTracker, WorkRouter), the Akka
+runtime's master/worker heartbeat choreography and the iterative-reduce
+variants, all of which implement data-parallel parameter averaging.
+
+The HOST-side control plane: job routing, the worker registry,
+heartbeats and eviction, update accumulation, counters, early-stop
+state, checkpointing (`checkpoint.py`, the single-file tier), the
+in-process runtime (`runtime.py`), the tracker served over TCP
+(`rpc.py`), worker processes (`launcher.py`, `worker.py`) and the
+elastic supervisor (`supervisor.py`) with its status endpoint
+(`status.py`). The compute runs inside each worker's performer, on the
+device its conf names (`perform.py`). Storage, provisioning and the
+distributed NLP performers (`storage.py`, `provision.py`, `boxes.py`,
+`perform_nlp.py`, `text_pipeline.py`) are ROADMAP Queue 1 item 14e.
+"""
+
+from deeplearning4j_tpu_torch.scaleout.api import (  # noqa: F401
+    CollectionJobIterator,
+    DataSetJobIterator,
+    HogWildWorkRouter,
+    InMemoryUpdateSaver,
+    IterativeReduceWorkRouter,
+    Job,
+    JobAggregator,
+    JobIterator,
+    LocalFileUpdateSaver,
+    LocalWorkRetriever,
+    WorkerPerformer,
+    WorkRetriever,
+    WorkRouter,
+)
+from deeplearning4j_tpu_torch.scaleout.statetracker import (  # noqa: F401
+    InMemoryStateTracker,
+)
+from deeplearning4j_tpu_torch.scaleout.aggregator import (  # noqa: F401
+    ParameterAveragingAggregator,
+)
+from deeplearning4j_tpu_torch.scaleout.perform import (  # noqa: F401
+    NeuralNetWorkPerformer,
+)
+from deeplearning4j_tpu_torch.scaleout.runtime import (  # noqa: F401
+    DistributedRuntime,
+)
 from deeplearning4j_tpu_torch.scaleout.checkpoint import (  # noqa: F401
     DefaultModelSaver,
     ModelSaver,
@@ -15,4 +54,12 @@ from deeplearning4j_tpu_torch.scaleout.checkpoint import (  # noqa: F401
     load_checkpoint,
     load_payload,
     register_namedtuple,
+)
+from deeplearning4j_tpu_torch.scaleout.registry import (  # noqa: F401
+    ConfigRegistry,
+)
+from deeplearning4j_tpu_torch.scaleout.supervisor import (  # noqa: F401
+    SupervisorAbort,
+    TrainingSupervisor,
+    WorkerSpawner,
 )

@@ -18,10 +18,10 @@ lifecycle (graceful shutdown releases the listening socket), serving
   telemetry registry (``/snapshot`` is the JSON twin);
 - ``GET /`` — a self-contained HTML view that polls the JSON.
 
-The port takes this host module ahead of the rest of `scaleout/`
-(ROADMAP Queue 1 item 14b) because the deployment controller's
-`status_port=` serves through it; the cluster runtime's `waves` section
-is filled only when an owner passes a runtime.
+The deployment controller's `status_port=` and the elastic supervisor
+(`scaleout/supervisor.py`, through `MultiProcessMaster`) serve through
+it; the cluster runtime's `waves` section is filled only when an owner
+passes a runtime.
 """
 
 from __future__ import annotations

@@ -16,6 +16,16 @@ from deeplearning4j_tpu_torch.serving.fleet import (Autoscaler,
                                                     FleetReplica,
                                                     NoReadyReplicas,
                                                     ReplicaSpawner)
+from deeplearning4j_tpu_torch.serving.kv_cache import (KVCache, decode_step,
+                                                      generate_cached,
+                                                      init_cache,
+                                                      kv_cache_bytes,
+                                                      prefill)
+from deeplearning4j_tpu_torch.serving.paged_kv import (PagedKVPool,
+                                                      init_paged_pool,
+                                                      paged_decode_step,
+                                                      paged_kv_bytes,
+                                                      paged_prefill)
 from deeplearning4j_tpu_torch.serving.replicas import ReplicaSet
 from deeplearning4j_tpu_torch.serving.router import (FleetHandle,
                                                      ReplicaClient,
@@ -28,4 +38,7 @@ __all__ = ["DecodeLoop", "GenerationStream", "EngineStats",
            "serve_network", "Deadline", "DeadlineExceededError",
            "OverloadedError", "Autoscaler", "CircuitBreaker", "Fleet",
            "FleetReplica", "NoReadyReplicas", "ReplicaSpawner",
-           "FleetHandle", "ReplicaClient", "serve_fleet"]
+           "FleetHandle", "ReplicaClient", "serve_fleet", "KVCache",
+           "decode_step", "generate_cached", "init_cache", "kv_cache_bytes",
+           "prefill", "PagedKVPool", "init_paged_pool", "paged_decode_step",
+           "paged_kv_bytes", "paged_prefill"]

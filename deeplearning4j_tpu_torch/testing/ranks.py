@@ -58,6 +58,7 @@ def _child(conn, fn, rank: int, n: int, port: int, timeout: float,
 
         multihost.initialize(f"127.0.0.1:{port}", n, rank, timeout=timeout)
         result = fn(rank, *args, **kwargs)
+        _leave_together()
         conn.send(("ok", result))
     except Exception:  # noqa: BLE001 - relayed to the parent
         conn.send(("error", traceback.format_exc()))
@@ -69,6 +70,20 @@ def _child(conn, fn, rank: int, n: int, port: int, timeout: float,
         except Exception:  # noqa: BLE001
             pass
         conn.close()
+
+
+def _leave_together() -> None:
+    """A barrier on the job's default group before a rank exits. Groups
+    made in `fn` connect every pair of ranks, and a rank that finished
+    first and closed its sockets would reset a slower peer's handshake
+    still under way ("Gloo connectFullMesh failed ... Connection closed
+    by peer"): a rank with little to do after its last group (a trainer
+    that only checks its arguments) otherwise fails its group under
+    load."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _fork_main(conn, *a) -> None:

@@ -10,7 +10,11 @@ the (label, features) "labeled point" row form
 (MLLibUtil.toLabeledPoint:129: label = argmax of the one-hot row).
 
 numpy <-> torch CPU tensors share memory where the arrays allow it;
-`to_device` copies host -> device.
+`to_device` copies host -> device. Tensors move to torch and to the
+device with no numpy step, so every torch dtype (bfloat16 included)
+passes. numpy has no bfloat16 of its own: `to_numpy` widens a bfloat16
+tensor to float32, which holds every bfloat16 value exactly (the
+JAX package returns ml_dtypes' bfloat16, whose values are the same).
 """
 
 from __future__ import annotations
@@ -26,13 +30,25 @@ from deeplearning4j_tpu_torch.datasets.api import DataSet
 
 def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            a = a.float()  # exact: numpy has no bfloat16
+        return a.numpy()
     return np.asarray(a)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A CPU tensor: tensors as they are (moved off the device), arrays
+    wrapped zero-copy where contiguous."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 # ------------------------------------------------------------------ numpy
 def to_numpy(ds: DataSet) -> Tuple[np.ndarray, np.ndarray]:
-    """(features, labels) host arrays (device tensors are fetched)."""
+    """(features, labels) host arrays (device tensors are fetched;
+    bfloat16 comes back as float32, see the module docstring)."""
     return _host(ds.features), _host(ds.labels)
 
 
@@ -50,9 +66,7 @@ def to_device(ds: DataSet, device=None):
     """Device-resident (features, labels) tensors on `device` (None = the
     CUDA device, raising without one)."""
     dev = default_device(device)
-    f, y = to_numpy(ds)
-    return (torch.as_tensor(np.ascontiguousarray(f), device=dev),
-            torch.as_tensor(np.ascontiguousarray(y), device=dev))
+    return (_tensor(ds.features).to(dev), _tensor(ds.labels).to(dev))
 
 
 # ------------------------------------------------------------------ torch
@@ -61,10 +75,8 @@ def to_torch(ds: DataSet):
     contiguous host-numpy arrays are wrapped zero-copy
     (torch.from_numpy), while non-contiguous or device-backed arrays
     are copied first — mutations through the tensors only reach the
-    DataSet in the zero-copy case."""
-    f, y = to_numpy(ds)
-    return (torch.from_numpy(np.ascontiguousarray(f)),
-            torch.from_numpy(np.ascontiguousarray(y)))
+    DataSet in the zero-copy case. Tensors keep their dtype."""
+    return _tensor(ds.features), _tensor(ds.labels)
 
 
 def from_torch(features, labels) -> DataSet:

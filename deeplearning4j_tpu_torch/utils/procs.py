@@ -1,8 +1,7 @@
 """Spawned-process-group management shared by every subsystem that
-launches sibling processes (the serving fleet's `ReplicaSpawner`; the
-training supervisor's `WorkerSpawner` comes with ROADMAP Queue 1 item
-14b). A copy of the JAX package's module: the port imports nothing of
-that package.
+launches sibling processes (the serving fleet's `ReplicaSpawner`, the
+training supervisor's `WorkerSpawner`). A copy of the JAX package's
+module: the port imports nothing of that package.
 
 The pid/pgid-recycling-sensitive logic lives here ONCE:
 

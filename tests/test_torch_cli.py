@@ -355,11 +355,8 @@ def test_a_checkpoint_of_one_cli_tests_in_the_other(ws, direction, kind):
 UNPORTED = {
     "fleet": (["fleet", "-m", "m.ckpt", "--compile-cache", "auto"],
               "item 14c"),
-    "watchdog": (["watchdog", "--", "train"], "item 14b"),
     "pipeline": (["pipeline", "--checkpoint-dir", "ck", "--compile-cache",
                   "auto"], "item 14c"),
-    "--elastic": (["train", "-i", "d.csv", "-m", "c.json", "-o", "m.ckpt",
-                   "--elastic", "2"], "item 14b"),
     "--compile-cache": (["train", "-i", "d.csv", "-m", "c.json", "-o",
                          "m.ckpt", "--compile-cache", "auto"], "item 14c"),
 }

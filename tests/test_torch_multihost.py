@@ -208,3 +208,24 @@ def test_a_failing_rank_fails_the_group_with_its_traceback():
         run_ranks(body, 3, timeout=60)
     assert "rank two's fault" in str(exc.value)
     assert run_ranks(lambda r: r * r, 3, timeout=60) == [0, 1, 4]
+
+
+def test_no_rank_leaves_while_a_peer_still_needs_it():
+    """A rank done first waits for its peers before it exits: rank 0
+    (which serves the job's store) returns at once, the others read the
+    store a second later. Without the launcher's closing barrier rank 0
+    is gone by then, as a fast rank was gone while a slow peer still
+    connected a group's mesh under load."""
+    from deeplearning4j_tpu_torch.testing.ranks import run_ranks
+
+    def body(rank):
+        import torch.distributed as dist
+
+        store = dist.distributed_c10d._get_default_store()
+        if rank == 0:
+            store.set("k", "v")
+            return "first"
+        time.sleep(1.0)
+        return store.get("k").decode()
+
+    assert run_ranks(body, 3, timeout=60) == ["first", "v", "v"]
