@@ -14,6 +14,15 @@ an edited kernel never loads a stale library. `build/` sits at the root
 of the checkout and is git-ignored. The sources include no PyTorch
 header, which keeps a build to seconds.
 
+With a program store active (`compilecache`, e.g. `cli serve
+--compile-cache DIR` or `DL4J_TPU_COMPILE_CACHE` inherited from a
+spawning parent) the built library also goes into the store under
+`kernels:<source hash>`, and a process whose build directory is empty
+loads it from there instead of running `nvcc` — a new checkout or
+container on a node that shares the cache pays no build. A missing or
+quarantined entry means `nvcc` builds the library, as without a store;
+the kernels are the same either way.
+
 The library is loaded with `ctypes`; every pointer and the stream are
 `c_void_p` (a bare Python int would be cut to 32 bits), ints are
 `c_int`, and each entry point returns its `cudaError_t`, which the
@@ -63,6 +72,9 @@ _lock = threading.Lock()
 _lib = None
 #: wall seconds the last `build()` spent compiling (0.0 on a cache hit)
 build_seconds = None
+#: where the last `build()` found the library: "disk" (already built),
+#: "store" (copied out of the program store) or "nvcc" (compiled)
+build_from = None
 
 
 def nvcc_path() -> str:
@@ -94,18 +106,57 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def store_key() -> str:
+    """The library's program-store key."""
+    return f"kernels:{source_digest()}"
+
+
+def _from_store(lib: Path) -> bool:
+    """Copy the library out of the active program store into `lib`
+    (atomically); False when no store is active or it has no loadable
+    entry (a torn one is quarantined by the store)."""
+    from deeplearning4j_tpu_torch import compilecache
+
+    comp = compilecache.active_compiler()
+    if comp is None:
+        return False
+    payload = comp.store.get(store_key())
+    if payload is None:
+        comp.store.record_miss()
+        return False
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.parent / f"{LIB_NAME}.{os.getpid()}.store.tmp"
+    tmp.write_bytes(payload)
+    os.replace(tmp, lib)
+    comp.store.record_hit()
+    return True
+
+
+def _to_store(lib: Path) -> None:
+    """Put a freshly built library into the active program store (a
+    failed write costs the next process a build, nothing more)."""
+    from deeplearning4j_tpu_torch import compilecache
+
+    comp = compilecache.active_compiler()
+    if comp is not None:
+        comp.store.put(store_key(), lib.read_bytes())
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these exact sources is
-    already built; return its path. The compiler's per-kernel register
-    and shared-memory report (`-Xptxas -v`) lands in `build.log` beside
-    the library."""
-    global build_seconds
+    already built or in the active program store; return its path. The
+    compiler's per-kernel register and shared-memory report (`-Xptxas
+    -v`) lands in `build.log` beside a compiled library."""
+    global build_seconds, build_from
     out_dir = BUILD_ROOT / source_digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
-        build_seconds = 0.0
+        build_seconds, build_from = 0.0, "disk"
         return lib
     start = time.perf_counter()
+    if _from_store(lib):
+        build_seconds, build_from = time.perf_counter() - start, "store"
+        return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     tag = f"{os.getpid()}.{threading.get_ident()}"
@@ -134,7 +185,8 @@ def build() -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    build_seconds = time.perf_counter() - start
+    build_seconds, build_from = time.perf_counter() - start, "nvcc"
+    _to_store(lib)
     return lib
 
 

@@ -67,10 +67,14 @@ it exits non-zero; with `--state-dir` on the wrapped `train --elastic`
 each restart re-adopts the surviving workers.
 
 The parser takes every subcommand and flag of the JAX CLI, so an argv
-written for it parses. What is not ported yet (the `--compile-cache` of
-train, serve, fleet and pipeline, and serve's `--warmup-plan PATH`, item
-14c) prints the ROADMAP item that brings it and exits 2 before doing
-anything.
+written for it parses, and every one of them is ported. `--compile-cache
+DIR|auto|off` on train, serve, fleet and pipeline activates the program
+store (`compilecache/`) before anything is built — the kernel library
+then comes out of the store instead of `nvcc` where an earlier process
+put it there, and spawned replicas and workers inherit the store through
+`DL4J_TPU_COMPILE_CACHE`; serve's `--warmup-plan auto|PATH|off` replays
+the recorded program set before `/readyz` flips. serve's announce line
+carries `compile_cache` and `warmup_plan`.
 
 Input CSV: one row per example, features then (for train/test) one-hot or
 integer label in the last column(s) — controlled by --label-columns.
@@ -86,34 +90,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-
-#: train flags of the JAX CLI that this port has not taken yet:
-#: (args attribute, flag) -> ROADMAP item
-FLAGS_NOT_PORTED = {
-    ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14c "
-                                          "(compilecache/)",
-}
-
-#: fleet flags of the JAX CLI that this port has not taken yet
-FLEET_FLAGS_NOT_PORTED = {
-    ("compile_cache", "fleet --compile-cache"): "ROADMAP Queue 1 item "
-                                                "14c (compilecache/)",
-}
-
-#: pipeline flags of the JAX CLI that this port has not taken yet
-PIPELINE_FLAGS_NOT_PORTED = {
-    ("compile_cache", "pipeline --compile-cache"): "ROADMAP Queue 1 item "
-                                                   "14c (compilecache/)",
-}
-
-#: serve flags of the JAX CLI that this port has not taken yet
-SERVE_FLAGS_NOT_PORTED = {
-    ("compile_cache", "--compile-cache"): "ROADMAP Queue 1 item 14c "
-                                          "(compilecache/)",
-    ("warmup_plan", "--warmup-plan PATH"): "ROADMAP Queue 1 item 14c "
-                                           "(warmup plans)",
-}
-
 
 def _load_csv(path: str, label_columns: int,
               n_classes: Optional[int] = None
@@ -168,18 +144,23 @@ def _model_n_out(net) -> Optional[int]:
         return None
 
 
-def _refused_flag(args, table=None, accepted=None) -> bool:
-    """Print and return True when a flag that is not ported was given.
-    `accepted` maps an attribute to the values that are ported (serve's
-    `--warmup-plan auto|off`, `--compile-cache off`)."""
-    accepted = accepted or {}
-    for (attr, flag), item in (table or FLAGS_NOT_PORTED).items():
-        value = getattr(args, attr, None)
-        if value is not None and value not in accepted.get(attr, ()):
-            print(f"{flag} is not ported to deeplearning4j_tpu_torch yet: "
-                  f"{item}", file=sys.stderr)
-            return True
-    return False
+def _activate_compile_cache(spec: Optional[str],
+                            anchor: Optional[str]) -> Optional[str]:
+    """`--compile-cache DIR|auto|off`: open the program store BEFORE any
+    engine, trainer or kernel library is built. `auto` co-locates the
+    store with `anchor` (the checkpoint/model dir) when one exists; with
+    no flag at all the process still inherits `DL4J_TPU_COMPILE_CACHE`
+    from a spawning parent lazily. Returns the active store directory
+    (for the announce line) or None."""
+    from deeplearning4j_tpu_torch import compilecache
+
+    if spec and spec != "off":
+        if spec == "auto":
+            if not anchor or not os.path.isdir(anchor):
+                return compilecache.active_dir()
+            spec = compilecache.default_dir_for_checkpoints(anchor)
+        compilecache.activate(spec)
+    return compilecache.active_dir()
 
 
 class _Telemetry:
@@ -223,8 +204,13 @@ def cmd_train(args) -> int:
     from deeplearning4j_tpu_torch.scaleout.checkpoint import \
         DefaultModelSaver
 
-    if _refused_flag(args):
-        return 2
+    # before any step is built AND before the elastic supervisor builds
+    # its WorkerSpawner (which exports the store to every worker)
+    if args.checkpoint_dir and getattr(args, "compile_cache", None) \
+            == "auto":
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+    _activate_compile_cache(getattr(args, "compile_cache", None),
+                            args.checkpoint_dir)
     if args.elastic:
         return _cmd_train_elastic(args)
     if args.checkpoint_every is not None and not args.checkpoint_dir:
@@ -875,15 +861,16 @@ def cmd_serve(args) -> int:
     from deeplearning4j_tpu_torch.serving import InferenceEngine
     from deeplearning4j_tpu_torch.serving.server import serve_network
 
-    if _refused_flag(args, SERVE_FLAGS_NOT_PORTED,
-                     accepted={"warmup_plan": ("auto", "off"),
-                               "compile_cache": ("off",)}):
-        return 2
     device = _device(args)
     if device is None:
         return 2
     tele = _Telemetry(args)
     try:
+        # activate BEFORE model/engine construction so every program the
+        # serving stack builds goes through the store
+        cache_dir = _activate_compile_cache(
+            args.compile_cache,
+            args.model if os.path.isdir(args.model) else None)
         net = _load_model(args.model, device)
         n_in = net.conf.confs[0].n_in
         # initial checkpoint identity for /readyz and /stats: what this
@@ -978,8 +965,8 @@ def cmd_serve(args) -> int:
                                   and args.speculation else None),
                           },
                       },
-                      "compile_cache": None,
-                      "warmup_plan": None,
+                      "compile_cache": cache_dir,
+                      "warmup_plan": handle.warmup_plan_path,
                       "metrics": handle.url + "/metrics",
                       **tele.announce()}), flush=True)
     if args.smoke:  # start/stop sanity check (tests, deploy probes)
@@ -1045,9 +1032,6 @@ def cmd_fleet(args) -> int:
     from deeplearning4j_tpu_torch.serving.router import (ReplicaClient,
                                                          serve_fleet)
 
-    if _refused_flag(args, FLEET_FLAGS_NOT_PORTED,
-                     accepted={"compile_cache": ("off",)}):
-        return 2
     try:
         roles = _parse_roles(args.roles) if args.roles else {}
         models = _parse_models(args.models) if args.models else {}
@@ -1069,6 +1053,11 @@ def cmd_fleet(args) -> int:
         lo, _, hi = args.autoscale.partition(":")
         autoscaler = Autoscaler(min_replicas=int(lo),
                                 max_replicas=int(hi or lo))
+    # activate before the spawner snapshots its child environment: every
+    # replica (initial, autoscaled, respawned) inherits the store
+    _activate_compile_cache(
+        getattr(args, "compile_cache", None),
+        args.model if args.model and os.path.isdir(args.model) else None)
     # the fleet's KV mode and device lead the spawned replicas' serve
     # args so an explicit --serve-arg from the operator still wins
     # (later argparse occurrence overrides)
@@ -1206,9 +1195,6 @@ def cmd_pipeline(args) -> int:
     from deeplearning4j_tpu_torch.deploy import (ControllerBusy,
                                                  DeploymentController)
 
-    if _refused_flag(args, PIPELINE_FLAGS_NOT_PORTED,
-                     accepted={"compile_cache": ("off",)}):
-        return 2
     if bool(args.fleet_url) == bool(args.spawn_fleet):
         print("pipeline needs exactly one of --fleet-url URL or "
               "--spawn-fleet (with -m MODEL)", file=sys.stderr)
@@ -1225,6 +1211,10 @@ def cmd_pipeline(args) -> int:
     device = _device(args)
     if device is None:
         return 2
+    # canary replicas the controller promotes should boot warm too:
+    # activate here so the spawned fleet's child env carries the store
+    _activate_compile_cache(getattr(args, "compile_cache", None),
+                            args.checkpoint_dir)
     probe = None
     if args.probe:
         probe = json.loads(args.probe)
@@ -1407,10 +1397,10 @@ def build_parser() -> argparse.ArgumentParser:
                               "(docs/FAULT_TOLERANCE.md)")
     p_train.add_argument("--compile-cache", default=None,
                          metavar="DIR|auto|off",
-                         help="persistent AOT program cache for the "
-                              "jitted train/eval steps; `auto` "
-                              "co-locates with --checkpoint-dir "
-                              "(docs/WARMUP.md). Elastic workers "
+                         help="program store (compilecache/) for the "
+                              "kernel library and the train steps' "
+                              "signatures; `auto` co-locates with "
+                              "--checkpoint-dir. Elastic workers "
                               "inherit it through the spawner env")
     telemetry_flags(p_train)
     p_train.set_defaults(fn=cmd_train)
@@ -1547,16 +1537,18 @@ def build_parser() -> argparse.ArgumentParser:
                               "(docs/SERVING.md \"Priority tiers\")")
     p_serve.add_argument("--compile-cache", default=None,
                          metavar="DIR|auto|off",
-                         help="persistent AOT program cache: warm "
-                              "boots load serialized executables "
-                              "instead of recompiling (docs/WARMUP.md)."
-                              " `auto` co-locates with a model/"
-                              "checkpoint DIR; unset still inherits "
-                              "DL4J_TPU_COMPILE_CACHE from a spawner")
+                         help="program store (compilecache/): warm "
+                              "boots load the kernel library from it "
+                              "instead of running nvcc and replay the "
+                              "warmup plan. `auto` co-locates with a "
+                              "model/checkpoint DIR; unset still "
+                              "inherits DL4J_TPU_COMPILE_CACHE from a "
+                              "spawner")
     p_serve.add_argument("--warmup-plan", default="auto",
                          metavar="auto|off|PATH",
                          help="warmup plan to replay at boot (the "
-                              "program set a previous replica compiled)"
+                              "program set a previous replica used: "
+                              "buckets, prefill groups, decode graphs)"
                               " and to record at shutdown; `auto` "
                               "stores it inside the compile cache, "
                               "`off` disables plan replay/recording")
@@ -1660,10 +1652,9 @@ def build_parser() -> argparse.ArgumentParser:
                               "(docs/FLEET.md router-restart runbook)")
     p_fleet.add_argument("--compile-cache", default=None,
                          metavar="DIR|auto|off",
-                         help="persistent AOT program cache exported "
-                              "to every spawned replica: respawns and "
-                              "autoscale spin-ups boot warm "
-                              "(docs/WARMUP.md); `auto` co-locates "
+                         help="program store exported to every "
+                              "spawned replica: respawns and autoscale "
+                              "spin-ups boot warm; `auto` co-locates "
                               "with a model/checkpoint DIR")
     p_fleet.add_argument("--roles", default=None,
                          metavar="ROLE=N[,ROLE=N...]",
@@ -1847,10 +1838,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "run until stopped)")
     p_pipe.add_argument("--compile-cache", default=None,
                         metavar="DIR|auto|off",
-                        help="persistent AOT program cache exported to "
-                             "canary/promoted replicas; `auto` "
-                             "co-locates with the watched checkpoint "
-                             "dir (docs/WARMUP.md)")
+                        help="program store exported to canary/"
+                             "promoted replicas; `auto` co-locates with "
+                             "the watched checkpoint dir")
     p_pipe.add_argument("--smoke", action="store_true",
                         help="start, print the announce line, shut down")
     telemetry_flags(p_pipe)

@@ -55,8 +55,11 @@ the loss is gauged only where a host read already happens (listeners,
 `fit_scan(sync=True)`), so a step syncs as often, and leaves the same
 params bit for bit, with telemetry on or off. The `train.batch` chaos
 point poisons a `fit` batch before its step, as in the JAX package;
-with no active plan it costs one global check. The compile cache is
-left out (ROADMAP Queue 1 item 14c).
+with no active plan it costs one global check. With a program store
+active (`compilecache`) the train step, the guarded step, the whole
+`fit_scan` call and the bucketed forward go through
+`compilecache.bind_program` under `_aot_key(tag)`, so each batch shape is
+a store signature and a warm process hits what an earlier one met.
 """
 
 from __future__ import annotations
@@ -144,6 +147,9 @@ class MultiLayerNetwork(nn.Module):
         #: a bucketed forward have run: the port's program counts
         self._train_programs: set = set()
         self._predict_programs: set = set()
+        #: program-store dispatchers by tag (compilecache), made at
+        #: first use
+        self._dispatchers: dict = {}
         self.init()
         # program counters surface as dl4j_jit_programs{cache=...}
         # (weak-ref'd: watching never extends this network's lifetime)
@@ -202,6 +208,36 @@ class MultiLayerNetwork(nn.Module):
         for listener in self.listeners:
             listener.iteration_done(self, self._iteration_count - 1, score)
         return score
+
+    def _aot_key(self, tag: str) -> Optional[str]:
+        """Program-store key for this network's steps: the config JSON
+        names the program family, the device binds it. None (= no
+        wrapping) when no store is active or the config won't
+        serialize."""
+        from deeplearning4j_tpu_torch import compilecache
+
+        if compilecache.active_compiler() is None:
+            return None
+        try:
+            digest = compilecache.config_digest(self.to_json())
+        except Exception:
+            return None
+        return f"train.{tag}:{digest}|dev={self.device}"
+
+    def _program(self, tag: str, fn, static_argnums=()):
+        """The bound method `fn` through the program store under `tag`,
+        made once a network and tag; `fn` itself, and nothing kept,
+        with no store active."""
+        d = self._dispatchers.get(tag)
+        if d is None:
+            from deeplearning4j_tpu_torch import compilecache
+
+            d = compilecache.bind_program(fn, self._aot_key(tag),
+                                          static_argnums=static_argnums)
+            if d is None:
+                return fn
+            self._dispatchers[tag] = d
+        return d
 
     def train_step_cache_size(self) -> int:
         """Distinct batch shapes (with dtype, masking and guarding) the
@@ -508,12 +544,13 @@ class MultiLayerNetwork(nn.Module):
                 t0 = time.perf_counter()
                 if guarded:
                     with span("train_step", guarded=True):
-                        score = self._guarded_step(guard, x, labels,
-                                                   n_valid)
+                        score = self._program("gstep", self._guarded_step)(
+                            guard, x, labels, n_valid)
                     self._observe(guard, score, 1)
                 else:
                     with span("train_step"):
-                        score = self._train_step(x, labels, n_valid)
+                        score = self._program("step", self._train_step)(
+                            x, labels, n_valid)
                 step_child.observe(time.perf_counter() - t0)
                 _M_STEPS.inc()
                 _M_EXAMPLES.inc(x.shape[0])
@@ -711,7 +748,10 @@ class MultiLayerNetwork(nn.Module):
         if guard is None:
             t0 = time.perf_counter()
             with span("fit_scan", epochs=int(epochs), batches=n_batches):
-                score = self._scan_epochs(batches, int(epochs), None)
+                score = self._program(
+                    f"fit_scan|m={int(counts is not None)}|g=0",
+                    self._scan_epochs, static_argnums=(1,))(
+                        batches, int(epochs), None)
             steps = int(epochs) * n_batches
             _M_STEP_S.labels(source="scan").observe(
                 (time.perf_counter() - t0) / max(1, steps))
@@ -780,9 +820,12 @@ class MultiLayerNetwork(nn.Module):
         n = x.shape[0]
         b = bucket_for(n, (DEFAULT_MIN_BUCKET,))
         self._predict_programs.add((b, tuple(x.shape[1:]), x.dtype))
+        return self._program("predict", self._forward_out)(
+            pad_rows(x, b))[:n]
+
+    def _forward_out(self, x: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return self.feed_forward_fn(self.param_table,
-                                        pad_rows(x, b))[-1][:n]
+            return self.feed_forward_fn(self.param_table, x)[-1]
 
     def predict(self, x) -> np.ndarray:
         """Class predictions (reference predict :1107), on the host."""

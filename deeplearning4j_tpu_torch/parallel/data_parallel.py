@@ -41,8 +41,11 @@ generator with (seed, rank), so the shards do not share dropout masks.
 
 Telemetry: the `dl4j_train_*` series with
 `dl4j_train_step_seconds{source="parallel"}`, and the span
-`parallel_train_step`. Left out: the JAX package's persistent
-compile-cache key (`_aot_key`), ROADMAP Queue 1 item 14c.
+`parallel_train_step`. With a program store active (`compilecache`) the
+step and the guarded step go through `compilecache.bind_program` under
+`_aot_key(tag)` — config digest, trainer class, mesh, axis and device
+set, the JAX package's key — so every subclass (ZeRO-1, TP) dispatches
+through the store too.
 """
 
 from __future__ import annotations
@@ -113,6 +116,40 @@ class DataParallelTrainer:
         self.n_devices = self.mesh.size
         self.updater = NetworkGradientUpdater.for_network(network)
         self._gen = torch.Generator(device=network.device)
+        #: program-store dispatchers by tag (compilecache), made at
+        #: first use
+        self._dispatchers: dict = {}
+
+    def _aot_key(self, tag: str) -> Optional[str]:
+        """Program-store key: config digest + class (subclasses change
+        the sharding) + mesh/axis + device set. None (= no wrapping)
+        when no store is active or the config won't serialize."""
+        from deeplearning4j_tpu_torch import compilecache
+
+        if compilecache.active_compiler() is None:
+            return None
+        try:
+            digest = compilecache.config_digest(self.network.to_json())
+        except Exception:
+            return None
+        shape = "x".join(str(s) for s in self.mesh.shape.values())
+        return (f"{type(self).__name__}.{tag}:{digest}|mesh={shape}"
+                f"|axis={self.axis}"
+                f"|dev={self.network.device}x{self.n_devices}")
+
+    def _program(self, tag: str, fn):
+        """The bound method `fn` through the program store under `tag`,
+        made once; `fn` itself, and nothing kept, with no store
+        active."""
+        d = self._dispatchers.get(tag)
+        if d is None:
+            from deeplearning4j_tpu_torch import compilecache
+
+            d = compilecache.bind_program(fn, self._aot_key(tag))
+            if d is None:
+                return fn
+            self._dispatchers[tag] = d
+        return d
 
     #: axes the guarded step's finite predicate is reduced over beyond
     #: the all-reduced gradients (TP: its shards differ over `model`)
@@ -321,12 +358,14 @@ class DataParallelTrainer:
                             (net._next_seed() * 1000003 + rank) % (1 << 63))
                         if guarded:
                             with span("parallel_train_step", guarded=True):
-                                score, guard.session.gstate = self._gstep(
-                                    x, labels, n_valid, guard.gstate)
+                                score, guard.session.gstate = \
+                                    self._program("gstep", self._gstep)(
+                                        x, labels, n_valid, guard.gstate)
                             self._observe(guard, score)
                         else:
                             with span("parallel_train_step"):
-                                score = self._step(x, labels, n_valid)
+                                score = self._program("step", self._step)(
+                                    x, labels, n_valid)
                         step_child.observe(time.perf_counter() - t0)
                         _M_STEPS.inc()
                         _M_EXAMPLES.inc(x.shape[0] * self._data_size)

@@ -27,7 +27,9 @@ network (`checkpoint/convert.py`), written from the first rank, so any
 trainer on any rank count restores it (`restore_flat_state`). A
 preemption flush on several ranks saves the parameters only and records
 `zero1_flat_state_skipped`: SIGTERM reaches ranks at different batches,
-and an all-gather entered there would mismatch across ranks.
+and an all-gather entered there would mismatch across ranks. The step
+and the guarded step go through DataParallelTrainer's program-store
+hook (`_program`), under this class's own key.
 """
 
 from __future__ import annotations

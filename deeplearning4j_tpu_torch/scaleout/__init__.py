@@ -13,9 +13,11 @@ in-process runtime (`runtime.py`), the tracker served over TCP
 (`rpc.py`), worker processes (`launcher.py`, `worker.py`) and the
 elastic supervisor (`supervisor.py`) with its status endpoint
 (`status.py`). The compute runs inside each worker's performer, on the
-device its conf names (`perform.py`). Storage, provisioning and the
-distributed NLP performers (`storage.py`, `provision.py`, `boxes.py`,
-`perform_nlp.py`, `text_pipeline.py`) are ROADMAP Queue 1 item 14e.
+device its conf names (`perform.py`). The artifact plane
+(`storage.py`), host provisioning and box creation (`provision.py`,
+`boxes.py`), and the distributed NLP performers with the corpus-to-vectors
+pipeline (`perform_nlp.py`, `text_pipeline.py`) sit on the same control
+plane; the Word2Vec and GloVe performers train on their conf's device.
 """
 
 from deeplearning4j_tpu_torch.scaleout.api import (  # noqa: F401
@@ -62,4 +64,14 @@ from deeplearning4j_tpu_torch.scaleout.supervisor import (  # noqa: F401
     SupervisorAbort,
     TrainingSupervisor,
     WorkerSpawner,
+)
+from deeplearning4j_tpu_torch.scaleout.storage import (  # noqa: F401
+    ArtifactStore,
+    StorageDataSetIterator,
+)
+from deeplearning4j_tpu_torch.scaleout.provision import (  # noqa: F401
+    ClusterSetup,
+    HostProvisioner,
+    LocalTransport,
+    SshTransport,
 )

@@ -162,7 +162,10 @@ class WorkerSpawner:
         if pkg_root not in path.split(os.pathsep):
             base_env["PYTHONPATH"] = (pkg_root + (os.pathsep + path
                                                   if path else ""))
-        # the program-cache export hook waits for ROADMAP Queue 1 item 14c
+        # elastic respawns inherit the program store: a replacement worker
+        # loads the kernel library from it instead of running nvcc
+        from deeplearning4j_tpu_torch import compilecache
+        compilecache.export_env(base_env)
         # cuBLAS picks the same kernels in every fresh worker process: a
         # respawned member recomputes an orphan job bit for bit
         base_env.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")

@@ -113,6 +113,15 @@ strings and labels. Chaos points: `decode.step`, `decode.fork`,
 
 `kernel="auto"|"kernel"|"gather"` picks the decode attention read
 (`attention.paged.resolve_decode_kernel`).
+
+**Warmup plans** (`compilecache/`): the step, verify, prefill,
+warm-tail prefill and copy programs go through `compilecache.bind_program`
+under the loop's `cache_key`, so with a program store active each is a
+store signature (`_program(name, ...)` runs one, through its dispatcher
+when there is one). `plan_fragment()` records which ran (the prefill groups
+by shape); `warm_programs(frag)` replays them on the scheduler thread —
+prefill groups on pad rows, the step and verify graphs captured, the
+draft rollout run — so a fresh loop meets no new program in traffic.
 """
 
 from __future__ import annotations
@@ -487,6 +496,26 @@ class DecodeLoop:
             f"decode:{config_digest(cfg)}|ps={self.page_size}"
             f"|k={self.decode_kernel}|h={self.horizon}"
             f"|spec={self.spec_k}|dev={self.device}")
+        # the program store (compilecache): a dispatcher a program when
+        # the process activated one (each program a store signature),
+        # else None
+        from deeplearning4j_tpu_torch import compilecache as _cc
+
+        key = self.cache_key
+        self._step = _cc.bind_program(self._run_program, key + "|step",
+                                      "step")
+        self._verify = _cc.bind_program(self._run_program,
+                                        key + "|verify", "verify")
+        self._prefill = _cc.bind_program(self._prefill_program,
+                                         key + "|prefill")
+        self._prefill_ctx = _cc.bind_program(self._prefill_ctx_program,
+                                             key + "|prefill_ctx")
+        self._copy = _cc.bind_program(self._copy_program, key + "|copy")
+        #: program-usage flags for plan_fragment(): the fixed-shape
+        #: programs actually run (prefill groups are recorded below)
+        self._plan_step = False
+        self._plan_verify = False
+        self._plan_copy = False
 
         # speculative decoding ----------------------------------------
         self._drafter = None
@@ -929,6 +958,11 @@ class DecodeLoop:
         ladder)."""
         return len(self._prefill_groups)
 
+    def prefill_ctx_programs(self) -> int:
+        """Distinct warm-tail prefill group shapes run (prefix cache
+        hits with a tail to prefill)."""
+        return len(self._prefill_ctx_groups)
+
     def graph_launches(self) -> dict:
         """Kernel launches made by graph replays since construction, per
         kernel: replays x the launches recorded in each graph. The
@@ -937,6 +971,103 @@ class DecodeLoop:
             graphs = list(self._graphs.values())
         return {name: sum(g.replays * g.launches[name] for g in graphs)
                 for name in _CAPTURED_LAUNCHES}
+
+    # ---- warmup plans (compilecache/warmup.py, the JAX package's format)
+    def plan_fragment(self) -> dict:
+        """The "decode" fragment of a warmup plan: which of this loop's
+        programs ran and at which prefill group shapes. Fixed-shape
+        programs (step, verify, copy) are flags — their shapes follow
+        from the loop's config; only the prefill groups depend on the
+        traffic."""
+        frag = {
+            "cache_key": self.cache_key,
+            "role": self.role,
+            "step": self._plan_step,
+            "verify": self._plan_verify,
+            "copy": self._plan_copy,
+            "prefill": sorted(list(g) for g in self._prefill_groups),
+            "prefill_ctx": sorted(list(g)
+                                  for g in self._prefill_ctx_groups),
+        }
+        if (self._drafter is not None
+                and getattr(self._drafter, "kind", None) == "model"):
+            frag["draft"] = {"rows": self.slots, "k": self.spec_k}
+        return frag
+
+    def warm_programs(self, frag: dict, timeout: float = 600.0) -> int:
+        """Replay a recorded plan fragment on the scheduler thread: run
+        every recorded prefill group on pad rows (their writes go to the
+        trash page), fork the trash page onto itself if the copy ran,
+        capture the step and verify graphs (on the card; on the CPU one
+        idle eager step each) and warm the model drafter — all before the
+        caller flips `/readyz`. A fragment of another loop identity is
+        ignored. Returns the number of programs warmed."""
+        if frag.get("cache_key") != self.cache_key:
+            return 0
+        job = {"kind": "warm", "frag": frag, "event": threading.Event(),
+               "result": {}}
+        self._enqueue_kv_job(job, timeout, "warmup plan replay did not "
+                                           "complete")
+        err = job["result"].get("error")
+        if err is not None:
+            raise err
+        return int(job["result"]["warmed"])
+
+    def _warm_program(self, name: str) -> None:
+        """Build the step or verify program as its first dispatch would:
+        the graph capture on the card (its warm-up run writes only the
+        trash page), one idle eager run on the CPU."""
+        if self._capture:
+            self._ensure_graph(name)
+            dispatcher = self._step if name == "step" else self._verify
+            if dispatcher is not None:
+                dispatcher.warm()
+        else:
+            (self._idle_step if name == "step" else self._idle_verify)()
+            self._program(name)
+
+    def _apply_warm(self, frag: dict) -> int:
+        """Scheduler-thread half of `warm_programs`."""
+        S, ps, trash = self.slots, self.page_size, self._trash
+        n = 0
+        if frag.get("step"):
+            self._warm_program("step")
+            self._plan_step = True
+            n += 1
+        if frag.get("verify") and self.spec_k:
+            self._warm_program("verify")
+            self._plan_verify = True
+            n += 1
+        if frag.get("copy"):
+            self._program("copy", trash, trash)
+            self._plan_copy = True
+            n += 1
+        for bb, tb in frag.get("prefill", ()):
+            self._prefill_groups.add((int(bb), int(tb)))
+            self._program(
+                "prefill",
+                self._to_device(np.zeros((bb, tb), np.int32)),
+                self._to_device(np.ones((bb,), np.int32)),
+                self._to_device(np.full((bb, tb // ps), trash, np.int32)))
+            n += 1
+        for bb, cb, tb in frag.get("prefill_ctx", ()):
+            self._prefill_ctx_groups.add((int(bb), int(cb), int(tb)))
+            self._program(
+                "prefill_ctx",
+                self._to_device(np.zeros((bb, tb), np.int32)),
+                self._to_device(np.ones((bb,), np.int32)),
+                self._to_device(np.full((bb, tb // ps), trash, np.int32)),
+                self._to_device(np.full((bb, cb), trash, np.int32)),
+                self._to_device(np.zeros((bb,), np.int32)))
+            n += 1
+        draft = frag.get("draft")
+        if (draft and self._drafter is not None
+                and hasattr(self._drafter, "warm")):
+            n += int(self._drafter.warm(int(draft.get("rows", S)),
+                                        int(draft.get("k", self.spec_k))))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return n
 
     # ---- fleet KV plane (serving/fleetkv.py)
     def kv_summary(self) -> Optional[dict]:
@@ -1159,20 +1290,19 @@ class DecodeLoop:
             pids[0, :len(fresh)] = fresh
             if covered == 0:
                 self._prefill_groups.add((1, tb))
-                paged_prefill(self.params, self._to_device(padded),
-                              self._to_device(lens), self._pool,
-                              self._to_device(pids), self.cfg)
+                self._program("prefill", self._to_device(padded),
+                              self._to_device(lens), self._to_device(pids))
             else:
                 cb = min(_pow2(covered), self._pps)
                 ctab = np.full((1, cb), self._trash, np.int32)
                 ctab[0, :covered] = matched
                 clen = np.full((1,), cov_tok, np.int32)
                 self._prefill_ctx_groups.add((1, cb, tb))
-                paged_prefill_ctx(
-                    self.params, self._to_device(padded),
-                    self._to_device(lens), self._pool,
+                self._program(
+                    "prefill_ctx",
+                    self._to_device(padded), self._to_device(lens),
                     self._to_device(pids), self._to_device(ctab),
-                    self._to_device(clen), self.cfg)
+                    self._to_device(clen))
             self._mark_pool_written()
             self._prefill_token_count += tl
             with self._cond:
@@ -1228,6 +1358,8 @@ class DecodeLoop:
             elif job.get("kind") == "prefill":
                 job["result"]["report"] = self._apply_prefill_only(
                     job["tokens"])
+            elif job.get("kind") == "warm":
+                job["result"]["warmed"] = self._apply_warm(job["frag"])
             else:
                 job["result"]["installed"] = self._kv_apply_install(
                     job["tokens"], job["chunks"])
@@ -1615,9 +1747,9 @@ class DecodeLoop:
                 pids[row, :len(pages)] = pages
                 self._prefill_token_count += plen
             self._prefill_groups.add((bb, tb))
-            logits, _ = paged_prefill(
-                self.params, self._to_device(padded), self._to_device(lens),
-                self._pool, self._to_device(pids), self.cfg)
+            logits = self._program("prefill", self._to_device(padded),
+                                   self._to_device(lens),
+                                   self._to_device(pids))
             self._install_prefilled(group,
                                     torch.argmax(logits, dim=-1)
                                     .to(torch.int32))
@@ -1646,15 +1778,44 @@ class DecodeLoop:
                 clen[row] = cov
                 self._prefill_token_count += tl
             self._prefill_ctx_groups.add((bb, cb, tb))
-            logits, _ = paged_prefill_ctx(
-                self.params, self._to_device(padded), self._to_device(lens),
-                self._pool, self._to_device(pids), self._to_device(ctab),
-                self._to_device(clen), self.cfg)
+            logits = self._program(
+                "prefill_ctx",
+                self._to_device(padded), self._to_device(lens),
+                self._to_device(pids), self._to_device(ctab),
+                self._to_device(clen))
             self._install_prefilled(group,
                                     torch.argmax(logits, dim=-1)
                                     .to(torch.int32))
         if cold or warm:
             self._mark_pool_written()
+
+    # ---- the prefill and copy programs (store-dispatched: see __init__)
+    def _program(self, name: str, *args):
+        """Run the step, verify, prefill, prefill_ctx or copy program:
+        through its store dispatcher when the process has a store, else
+        the method itself."""
+        dispatcher = getattr(self, "_" + name)
+        if dispatcher is not None:
+            return dispatcher(*args)
+        if name in ("step", "verify"):
+            return self._run_program(name)
+        return getattr(self, f"_{name}_program")(*args)
+
+    def _prefill_program(self, padded, lens, pids) -> torch.Tensor:
+        """A cold prefill group into the pool; its last-position logits."""
+        logits, _ = paged_prefill(self.params, padded, lens, self._pool,
+                                  pids, self.cfg)
+        return logits
+
+    def _prefill_ctx_program(self, padded, lens, pids, ctab,
+                             clen) -> torch.Tensor:
+        """A warm-tail prefill group over cached pages; its logits."""
+        logits, _ = paged_prefill_ctx(self.params, padded, lens, self._pool,
+                                      pids, ctab, clen, self.cfg)
+        return logits
+
+    def _copy_program(self, src: int, dst: int) -> None:
+        copy_page(self._pool, src, dst)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -1727,7 +1888,8 @@ class DecodeLoop:
                 return max(length, j * ps)
             try:
                 chaos.hit("decode.fork")
-                copy_page(self._pool, page, new)
+                self._program("copy", page, new)
+                self._plan_copy = True
             except BaseException:
                 self._release_page(new)
                 raise
@@ -1854,7 +2016,8 @@ class DecodeLoop:
                                     device=self.device)
                 self._d_tokens[idxs] = arr[rows]
         t0 = time.perf_counter()
-        self._run_program("step")
+        self._program("step")
+        self._plan_step = True
         # the (K, S) token copy to the host is the sync the streams need
         toks = self._d_out.cpu().numpy()
         self._observe_step(time.perf_counter() - t0)
@@ -1958,7 +2121,8 @@ class DecodeLoop:
         v_table[:] = self._table
         t0 = time.perf_counter()
         self._vd_ctrl.copy_(torch.from_numpy(self._vh_ctrl))
-        self._run_program("verify")
+        self._program("verify")
+        self._plan_verify = True
         out = self._v_out.cpu().numpy()  # (S, W) argmax
         self._observe_step(time.perf_counter() - t0)
         self._counts.add("dispatches")

@@ -8,7 +8,12 @@ cross-example reductions at inference), so padded rows never touch real
 outputs. On the card the bucket ladder bounds the shapes the forward
 meets, so the caching allocator and cuBLAS see a few shapes, as the JAX
 package's jit sees a few programs: `program_cache_size()` counts the
-distinct bucket shapes run (its analogue of `jit_cache_size`).
+distinct bucket shapes run (its analogue of `jit_cache_size`). With a
+program store active (`compilecache`) the forward goes through
+`bind_program` under the engine's `cache_key`, so each bucket shape is a
+store signature; `plan_fragment()` records the buckets and
+`warmup_from_plan()` runs them again on a fresh engine before
+`/readyz`.
 
 Constructors: `for_network` (a MultiLayerNetwork's output layer),
 `for_lstm` (an LSTM layer's per-timestep outputs), `for_transformer`
@@ -162,9 +167,14 @@ class InferenceEngine:
         self.device = default_device(device)
         self._params = _to_device(params, self.device)
         self._apply = apply_fn
-        #: model identity + device (the JAX engine's persistent-cache key)
+        #: model identity + device: the program store key of the forward
         self.cache_key = (f"{cache_key}|dev={self.device}"
                           if cache_key is not None else None)
+        from deeplearning4j_tpu_torch import compilecache
+        #: the bucketed forward's store dispatcher with a cache active,
+        #: else None (`_forward` calls `_run_forward` itself)
+        self._jit = compilecache.bind_program(self._run_forward,
+                                              self.cache_key)
         self._generate_fn = generate_fn
         #: continuous-batching slot scheduler (transformer engines;
         #: start_decode_loop) — None until started
@@ -177,6 +187,9 @@ class InferenceEngine:
         #: (batch, feature shape, dtype) of every forward run: the
         #: analogue of the JAX engine's compiled-program count
         self._shapes: set = set()
+        #: feature shape + dtype the engine warms with, captured from
+        #: warmup() or the first infer() — what plan_fragment() records
+        self._warm_shape: Optional[tuple] = None
         #: checkpoint identity this engine serves ({path, step} or None)
         self.checkpoint: Optional[dict] = None
         #: identity of the hot-loaded draft model's checkpoint
@@ -274,9 +287,14 @@ class InferenceEngine:
         """One bucket-shaped forward, its result copied to the host."""
         self._shapes.add((int(x.shape[0]), tuple(x.shape[1:]), x.dtype.str))
         xb = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        run = self._run_forward if self._jit is None else self._jit
+        return run(xb).float().cpu().numpy()
+
+    def _run_forward(self, xb: torch.Tensor) -> torch.Tensor:
+        """The forward at the engine's current params (their shapes are
+        fixed by the model, so a program's signature is the batch's)."""
         with torch.no_grad():
-            out = self._apply(self._params, xb)
-        return out.float().cpu().numpy()
+            return self._apply(self._params, xb)
 
     def infer(self, x) -> np.ndarray:
         """One request: (n, ...) -> np.ndarray of the first n output
@@ -291,6 +309,9 @@ class InferenceEngine:
         n = int(x.shape[0])
         if n == 0:
             raise ValueError("empty request")
+        if self._warm_shape is None:
+            self._warm_shape = (tuple(int(d) for d in x.shape[1:]),
+                                x.dtype.str)
         start = time.perf_counter()
         try:
             with span("engine_infer", rows=n):
@@ -434,14 +455,49 @@ class InferenceEngine:
         """Run every bucket's forward once up front (the JAX engine's
         execute-every-bucket warmup), so the first real requests find
         the allocator and cuBLAS warm. `feature_shape` is one example's
-        shape (without the batch dim). Bypasses EngineStats."""
+        shape (without the batch dim). Bypasses EngineStats. With a
+        program store active each bucket is a store lookup too."""
+        self._warm_buckets(self.buckets, feature_shape, dtype)
+
+    def _warm_buckets(self, buckets, feature_shape, dtype) -> None:
         start = time.perf_counter()
-        for b in self.buckets:
-            self._forward(np.zeros((b, *feature_shape), dtype))
+        for b in buckets:
+            self._forward(np.zeros((int(b), *feature_shape), dtype))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.warmup_seconds = time.perf_counter() - start
+        self._warm_shape = (tuple(int(d) for d in feature_shape),
+                            np.dtype(dtype).str)
         self.warmed_up = True
+
+    # ------------------------------------------------- warmup plans
+    def plan_fragment(self) -> Optional[dict]:
+        """The "engine" fragment of a warmup plan (the JAX package's
+        format): the buckets this engine ran — ladder plus any pow2
+        escape buckets traffic actually forwarded — and the feature
+        shape to run them with. None until a shape is known (no warmup
+        and no traffic yet) or when the engine has no cache identity."""
+        if self.cache_key is None or self._warm_shape is None:
+            return None
+        shape, dtype = self._warm_shape
+        buckets = set(self.buckets) | set(self.stats.bucket_forwards())
+        return {"cache_key": self.cache_key,
+                "buckets": sorted(int(b) for b in buckets),
+                "feature_shape": list(shape),
+                "dtype": dtype}
+
+    def warmup_from_plan(self, frag: dict) -> None:
+        """Replay a recorded plan fragment: run every bucket it lists
+        (each a store hit on a warm cache), escape buckets included, so
+        traffic then meets no new shape. A fragment recorded for a
+        different model identity falls back to the standard ladder
+        warmup at its feature shape."""
+        shape = tuple(int(d) for d in frag.get("feature_shape", ()))
+        dtype = np.dtype(frag.get("dtype", "float32"))
+        if frag.get("cache_key") != self.cache_key:
+            self.warmup(shape, dtype)
+            return
+        self._warm_buckets(frag.get("buckets", self.buckets), shape, dtype)
 
     def program_cache_size(self) -> int:
         """Distinct bucket shapes the forward has run — the analogue of

@@ -359,8 +359,11 @@ class ReplicaSpawner:
         self.host = host
         self.serve_args = list(serve_args)
         self.env = dict(env) if env is not None else dict(os.environ)
-        # the JAX spawner exports its AOT program cache here: ROADMAP
-        # Queue 1 item 14c (compilecache/)
+        # replicas inherit the parent's program store, so respawns and
+        # autoscale spin-ups load the kernel library and replay the
+        # warmup plan instead of building them
+        from deeplearning4j_tpu_torch import compilecache
+        compilecache.export_env(self.env)
         self.python = python or sys.executable
         self.announce_timeout = float(announce_timeout)
 

@@ -58,12 +58,20 @@ router's shedding also speaks (serving/errors.py, docs/FLEET.md).
 Warmup: `warmup_shape` runs every bucket of every predict engine once
 (sync before the socket opens, or in the background with
 `warmup_async=True`, `/readyz` answering 503 until it lands);
-`recompiled_after_warmup` counts program growth since then (bucket
-shapes run, prefill groups, captured decode graphs). Warmup plan files
-and the persistent compile cache are not ported (ROADMAP Queue 1 item
-14): `warmup_plan="off"`, or "auto" with no cache, is accepted (a no-op,
-as in the JAX package without a cache); a plan path or `compile_cache=`
-raises NotImplementedError.
+`recompiled_after_warmup` counts the programs built after it, with or
+without a store: the growth of the program counts (bucket shapes run,
+prefill and warm-tail prefill groups, captured decode graphs) since
+warmup ended. A store hit skips no work in the port (the step still
+runs), so the store's misses since warmup are reported beside it as
+`store_misses_after_warmup`, never in its place. `compile_cache=DIR`
+activates the program store (`compilecache/`) and `warmup_plan`
+("auto": the plan in the store's directory; a path; "off") replays the
+program set an earlier boot recorded — the predict buckets, the decode
+loop's prefill groups, its step and verify graph captures and the draft
+rollout — before `/readyz` flips; the handle records the plan after
+warmup and again at close. /stats carries `compile_cache` and
+`warmup.plan_replayed`, /metrics `dl4j_compile_warmup_seconds` and the
+store's `dl4j_compile_cache_*` series.
 """
 
 from __future__ import annotations
@@ -146,9 +154,14 @@ class ServingHandle:
         self.warmup_error: Optional[str] = None
         if not warmup_pending:
             self._warmed.set()
-        # the post-warmup program baseline defines
-        # `recompiled_after_warmup`
+        # warm-start state: the plan loaded at boot (None = cold), where
+        # to record this process's own program set, and the post-warmup
+        # baselines that define `recompiled_after_warmup`
+        self.warmup_plan: Optional[dict] = None
+        self.warmup_plan_path: Optional[str] = None
         self.warmup_seconds: Optional[float] = None
+        self.plan_replay: Optional[dict] = None
+        self._baseline_misses: Optional[int] = None
         self._baseline_programs: Optional[int] = None
 
     @property
@@ -161,16 +174,45 @@ class ServingHandle:
 
     def close(self) -> None:
         """Stop accepting requests, flush the batcher, drain the decode
-        loop, release the socket."""
+        loop, release the socket. Re-records the warmup plan on the way
+        out — it now includes every program TRAFFIC used (escape
+        buckets, prefill groups), so the next boot warms the real working
+        set, not just what warmup touched."""
         self.http.close()
         if self.batcher is not None:
             self.batcher.close()
         if self.generate_engine is not None:
             self.generate_engine.close()  # drains the decode loop
+        self.record_plan()
+
+    # ----------------------------------------------- warmup plans
+    def build_plan(self) -> dict:
+        """The warmup plan describing this process's program set: one
+        fragment per predict engine (matched at replay by cache_key)
+        plus the decode loop's."""
+        plan: dict = {"engines": [], "decode": None}
+        for eng in self.replicas.engines:
+            frag = getattr(eng, "plan_fragment", lambda: None)()
+            if frag is not None:
+                plan["engines"].append(frag)
+        ge = self.generate_engine
+        if ge is not None and ge.decode_loop is not None:
+            plan["decode"] = ge.decode_loop.plan_fragment()
+        return plan
+
+    def record_plan(self) -> bool:
+        """Write the current program set to `warmup_plan_path`
+        (crash-atomic; no-op without a path)."""
+        from deeplearning4j_tpu_torch.compilecache import warmup as _warmup
+
+        if self.warmup_plan_path is None:
+            return False
+        return _warmup.save_plan(self.warmup_plan_path, self.build_plan())
 
     def _program_total(self) -> int:
-        """Every compiled-program counter this process exposes, summed
-        — the cache-less definition of `recompiled_after_warmup`."""
+        """Every program counter this process exposes, summed: each
+        engine's bucket shapes, the generate engine's, and the decode
+        loop's captured graphs, prefill and warm-tail prefill groups."""
         total = 0
         for eng in self.replicas.engines:
             total += max(0, eng.program_cache_size())
@@ -179,19 +221,30 @@ class ServingHandle:
             total += max(0, ge.program_cache_size())
             loop = ge.decode_loop
             if loop is not None:
-                snap_keys = (loop.decode_step_programs(),
-                             loop.prefill_programs())
-                total += sum(max(0, n) for n in snap_keys)
+                total += (loop.decode_step_programs()
+                          + loop.prefill_programs()
+                          + loop.prefill_ctx_programs())
         return total
 
     def recompiled_after_warmup(self) -> Optional[int]:
-        """Programs built AFTER warmup finished: program-count growth
-        since the post-warmup baseline (the JAX package's cache-less
-        definition). None until warmup has run."""
-        if self._baseline_programs is not None:
-            return max(0, self._program_total()
-                       - self._baseline_programs)
-        return None
+        """Programs built AFTER warmup finished: the growth of
+        `_program_total` since the post-warmup baseline, whether or not
+        a store is active. None until warmup has run. Zero on a warm
+        boot is the point of the warmup plan."""
+        if self._baseline_programs is None:
+            return None
+        return max(0, self._program_total() - self._baseline_programs)
+
+    def store_misses_after_warmup(self) -> Optional[int]:
+        """The program store's misses since warmup ended (signatures met
+        for the first time by any process on this store); None without
+        a store or before warmup."""
+        from deeplearning4j_tpu_torch import compilecache
+
+        comp = compilecache.active_compiler()
+        if comp is None or self._baseline_misses is None:
+            return None
+        return int(comp.store.stats()["misses"] - self._baseline_misses)
 
     def __enter__(self) -> "ServingHandle":
         return self
@@ -203,21 +256,45 @@ class ServingHandle:
     def _run_warmup(self, feature_shape) -> None:
         """Warmup (sync before the socket opens, or on a background
         thread with `warmup_async=True` — /healthz answers, /readyz
-        gates admission until this lands): every predict engine runs
-        every bucket once. Afterwards the post-warmup program baseline
-        is pinned (recompiled_after_warmup counts from here)."""
+        gates admission until this lands). With a loaded warmup plan,
+        each engine and the decode loop replay their recorded fragment;
+        engines without a matching fragment — and every engine on a
+        cold boot — run every bucket once. Afterwards the post-warmup
+        baselines are pinned (recompiled_after_warmup counts from here)
+        and the plan is recorded for the next boot."""
+        from deeplearning4j_tpu_torch import compilecache
+
         start = time.perf_counter()
         try:
+            plan = self.warmup_plan
+            frags = {f.get("cache_key"): f
+                     for f in (plan or {}).get("engines", [])}
+            replayed = {"engines": 0, "decode": 0}
             for eng in self.replicas.engines:
-                if feature_shape is not None:
+                frag = frags.get(getattr(eng, "cache_key", None))
+                if frag is not None:
+                    eng.warmup_from_plan(frag)
+                    replayed["engines"] += 1
+                elif feature_shape is not None:
                     eng.warmup(tuple(feature_shape))
+            loop = (self.generate_engine.decode_loop
+                    if self.generate_engine is not None else None)
+            dfrag = (plan or {}).get("decode")
+            if loop is not None and dfrag:
+                replayed["decode"] = loop.warm_programs(dfrag)
+            if plan is not None:
+                self.plan_replay = replayed
         except Exception as e:  # surface via /readyz, don't die silent
             self.warmup_error = f"{type(e).__name__}: {e}"
         finally:
             self.warmup_seconds = time.perf_counter() - start
             _M_WARMUP_S.set(self.warmup_seconds)
+            comp = compilecache.active_compiler()
+            if comp is not None:
+                self._baseline_misses = int(comp.store.stats()["misses"])
             self._baseline_programs = self._program_total()
             self._warmed.set()
+        self.record_plan()
 
     def readiness(self) -> dict:
         """Readiness probe payload: ready iff warmup precompile is done
@@ -282,11 +359,17 @@ class ServingHandle:
         if self.warmup_seconds is not None:
             out["warmup"] = {
                 "seconds": round(self.warmup_seconds, 4),
-                # warmup plans are not ported (ROADMAP Queue 1 item 14)
-                "plan_replayed": None,
+                "plan_replayed": self.plan_replay,
                 "recompiled_after_warmup":
                     self.recompiled_after_warmup(),
+                "store_misses_after_warmup":
+                    self.store_misses_after_warmup(),
             }
+        from deeplearning4j_tpu_torch import compilecache
+
+        cache_stats = compilecache.stats()
+        if cache_stats is not None:
+            out["compile_cache"] = cache_stats
         return out
 
     def load_checkpoint(self, path: str, step: Optional[int] = None) -> dict:
@@ -408,21 +491,22 @@ def serve_network(net=None, *, replicas: Optional[ReplicaSet] = None,
     `model_id` names the served model for the router's multi-model
     registry; both ride the /readyz payload.
 
-    Warmup plans and the persistent compile cache are not ported
-    (ROADMAP Queue 1 item 14): `warmup_plan` "auto" (default; no cache
-    is ever active here, so it is the JAX package's no-op) and "off"
-    are accepted, a plan path raises NotImplementedError, and so does
-    `compile_cache=`.
+    Warm start (`compilecache/`): `compile_cache=DIR` activates the
+    program store for this process (pass engines built AFTER activation
+    — or activate via `compilecache.activate` / `DL4J_TPU_COMPILE_CACHE`
+    before constructing them — so their programs are store-wrapped).
+    `warmup_plan` replays a recorded program set at warmup time: "auto"
+    (default) looks for a plan in the active store's directory and is a
+    silent no-op when there is none or no store is active; "off"
+    disables replay; any other value is a plan file path. The handle
+    re-records the plan after warmup and at close, so a replica's next
+    boot warms exactly the program set this one used.
     """
+    from deeplearning4j_tpu_torch import compilecache
+    from deeplearning4j_tpu_torch.compilecache import warmup as _warmup_mod
+
     if compile_cache:
-        raise NotImplementedError(
-            "compile_cache is not ported to deeplearning4j_tpu_torch yet "
-            "(ROADMAP Queue 1 item 14: the persistent compile cache)")
-    if warmup_plan not in (None, "off", "auto"):
-        raise NotImplementedError(
-            f"warmup plan files ({warmup_plan!r}) are not ported to "
-            f"deeplearning4j_tpu_torch yet (ROADMAP Queue 1 item 14: "
-            f"warmup plans)")
+        compilecache.activate(compile_cache)
     if replicas is None:
         if net is None:
             raise ValueError("serve_network needs net= or replicas=")
@@ -457,10 +541,33 @@ def serve_network(net=None, *, replicas: Optional[ReplicaSet] = None,
     batcher = replicas.batcher(max_batch_size=max_batch_size,
                                max_delay_ms=max_delay_ms,
                                max_queue=max_queue)
-    run_warmup = warm is not None
+    # resolve the warmup plan: "auto" keys the plan off the first
+    # cache-identified engine, inside the active store's directory —
+    # record and replay coordinate through the directory alone
+    plan_path = plan_doc = None
+    if warmup_plan and warmup_plan != "off":
+        if warmup_plan == "auto":
+            cache_dir = compilecache.active_dir()
+            identity = next(
+                (getattr(e, "cache_key", None)
+                 for e in ([generate_engine] if generate_engine else [])
+                 + list(replicas.engines)
+                 if getattr(e, "cache_key", None) is not None), None)
+            if cache_dir and identity:
+                # role-scoped plans: a prefill replica's plan never warms
+                # the decode ladder (and vice versa)
+                plan_path = _warmup_mod.auto_plan_path(cache_dir, identity,
+                                                       role=role)
+        else:
+            plan_path = warmup_plan
+        if plan_path:
+            plan_doc = _warmup_mod.load_plan(plan_path)
+    run_warmup = warm is not None or plan_doc is not None
     handle = ServingHandle(replicas, batcher, generate_engine,
                            warmup_pending=(run_warmup and warmup_async),
                            role=role, model_id=model_id)
+    handle.warmup_plan = plan_doc
+    handle.warmup_plan_path = plan_path
     if run_warmup and not warmup_async:
         handle._run_warmup(warm)
 

@@ -116,14 +116,16 @@ class ModelDrafter:
         self.window = int(min(window, cfg.max_len))
         #: distinct (rows, window, k) draft shapes run
         self._shapes: set = set()
+        from deeplearning4j_tpu_torch import compilecache
+        #: the k-step rollout's store dispatcher with a cache active (k
+        #: is static: each k is its own program), else None
+        self._draft = compilecache.bind_program(
+            self._rollout,
+            f"draft:{compilecache.config_digest(cfg)}|w={self.window}"
+            f"|dev={self.device}", static_argnums=(1,))
 
     @torch.no_grad()
-    def propose_all(self, windows: np.ndarray, k: int) -> np.ndarray:
-        """(S, window) int32 right-aligned histories -> (S, k) int32
-        proposals. Rows the caller doesn't need are computed anyway
-        (fixed shape) and ignored."""
-        win = torch.from_numpy(np.ascontiguousarray(windows, np.int32)) \
-            .to(self.device)
+    def _rollout(self, win: torch.Tensor, k: int) -> torch.Tensor:
         self._shapes.add((int(win.shape[0]), int(win.shape[1]), int(k)))
         out = []
         for _ in range(int(k)):
@@ -131,7 +133,30 @@ class ModelDrafter:
             nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
             win = torch.cat([win[:, 1:], nxt[:, None]], dim=1)
             out.append(nxt)
-        return torch.stack(out, dim=1).cpu().numpy()
+        return torch.stack(out, dim=1)
+
+    def propose_all(self, windows: np.ndarray, k: int) -> np.ndarray:
+        """(S, window) int32 right-aligned histories -> (S, k) int32
+        proposals. Rows the caller doesn't need are computed anyway
+        (fixed shape) and ignored."""
+        win = torch.from_numpy(np.ascontiguousarray(windows, np.int32)) \
+            .to(self.device)
+        return self._run_draft(win, int(k)).cpu().numpy()
+
+    def warm(self, rows: int, k: int) -> bool:
+        """Run the `(rows, window)` k-step rollout once on zeros (warmup
+        plan replay), so the first speculative round meets a warm
+        program. True once the program is resident."""
+        win = torch.zeros((int(rows), self.window), dtype=torch.int32,
+                          device=self.device)
+        self._run_draft(win, int(k))
+        return True
+
+    def _run_draft(self, win: torch.Tensor, k: int) -> torch.Tensor:
+        """The rollout, through its store dispatcher when there is one."""
+        if self._draft is None:
+            return self._rollout(win, k)
+        return self._draft(win, k)
 
     def draft_programs(self) -> int:
         """Distinct draft shapes run (0 until first use, then 1 under a

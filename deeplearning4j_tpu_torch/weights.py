@@ -157,6 +157,23 @@ def glove_state_from_jax(model, params, accum=None):
     return model
 
 
+def glove_work_state_from_jax(performer, params, accum=None):
+    """A JAX `GloveWorkPerformer`'s tables as numpy ({"w", "c", "bw",
+    "bc"}, e.g. `{k: np.asarray(v) for k, v in jax_perf._params.items()}`)
+    and, optionally, its accumulators -> the port `GloveWorkPerformer`'s
+    (after its `setup()`), float32 copies on its device, so both start a
+    job from the same place. Without `accum` the accumulators restart at
+    1e-8. Returns the performer."""
+    have = performer._params
+    if have is None:
+        raise ValueError("GloveWorkPerformer.setup() first")
+    for k in GLOVE_PARAMS:
+        if k in params and np.shape(params[k]) != tuple(have[k].shape):
+            raise ValueError(f"{k} has shape {np.shape(params[k])}, the "
+                             f"performer's {tuple(have[k].shape)}")
+    return glove_state_from_jax(performer, params, accum)
+
+
 RNTN_PARAMS = ("W", "Wu", "T", "Wb", "E")
 
 

@@ -351,51 +351,92 @@ def test_a_checkpoint_of_one_cli_tests_in_the_other(ws, direction, kind):
     assert last_json(got[1]) == last_json(ref[1])
 
 
-# --------------------------------------------------- not ported, device
+# ------------------------------------- the program store's flags, device
+#: the JAX CLI's `--compile-cache` argvs, refused by the port until its
+#: program store (compilecache/) came; every one is taken now
 UNPORTED = {
-    "fleet": (["fleet", "-m", "m.ckpt", "--compile-cache", "auto"],
-              "item 14c"),
-    "pipeline": (["pipeline", "--checkpoint-dir", "ck", "--compile-cache",
-                  "auto"], "item 14c"),
-    "--compile-cache": (["train", "-i", "d.csv", "-m", "c.json", "-o",
-                         "m.ckpt", "--compile-cache", "auto"], "item 14c"),
+    "fleet": ["fleet", "-m", "m.ckpt", "--compile-cache", "auto"],
+    "pipeline": ["pipeline", "--checkpoint-dir", "ck", "--compile-cache",
+                 "auto"],
+    "--compile-cache": ["train", "-i", "d.csv", "-m", "c.json", "-o",
+                        "m.ckpt", "--compile-cache", "auto"],
 }
 
 
 @pytest.mark.parametrize("what", sorted(UNPORTED))
-def test_unported_commands_exit_2_naming_their_item(what, tmp_path):
-    argv, item = UNPORTED[what]
+def test_unported_commands_exit_2_naming_their_item(what, ws, tmp_path):
+    """Nothing of the JAX CLI is left unported: each of these argvs
+    parses in both CLIs, and the port takes `--compile-cache`: `auto`
+    co-locates the store with the command's checkpoint/model directory
+    when there is one (and is a no-op without), a path activates it
+    there and exports it to children, `off` does nothing. `train` then
+    runs with it and leaves its train step's signature in the store."""
+    from deeplearning4j_tpu_torch import compilecache as cc
+
+    argv = UNPORTED[what]
     jcli.build_parser().parse_args(argv)  # a JAX argv ...
-    cwd = os.getcwd()
-    os.chdir(tmp_path)
+    args = pcli.build_parser().parse_args(argv)  # ... parses in the port
+    assert args.compile_cache == "auto"
+    anchor = tmp_path / "anchor"
+    anchor.mkdir()
+    cc.deactivate()
     try:
-        rc, out, err = run("port", *argv)  # ... parses and refuses
+        assert pcli._activate_compile_cache("off", str(anchor)) is None
+        assert pcli._activate_compile_cache(
+            "auto", str(tmp_path / "missing")) is None
+        got = pcli._activate_compile_cache(args.compile_cache, str(anchor))
+        assert got == os.path.join(str(anchor), "compile_cache")
+        assert os.environ[cc.CACHE_ENV] == got
     finally:
-        os.chdir(cwd)
-    assert rc == 2 and out == ""
-    assert what.lstrip("-") in err and f"ROADMAP Queue 1 {item}" in err
-    assert not os.listdir(tmp_path)
+        cc.deactivate()
+    if what != "--compile-cache":
+        return
+    store = tmp_path / "store"
+    try:
+        rc, out, err = run("port", "train", "-i", ws["csv"], "-m",
+                           ws["conf"], "-o", tmp_path / "m.ckpt",
+                           "--compile-cache", store)
+        assert rc == 0, err
+        assert cc.active_dir() == str(store)
+        assert cc.stats()["entries"] >= 1 and cc.stats()["misses"] >= 1
+    finally:
+        cc.deactivate()
 
 
 @pytest.mark.parametrize("flag,value", [("--compile-cache", "auto"),
                                         ("--compile-cache", "cache"),
                                         ("--warmup-plan", "plan.json")])
-def test_serve_refuses_the_compile_cache_and_plan_files(flag, value,
+def test_serve_refuses_the_compile_cache_and_plan_files(flag, value, ws,
                                                         tmp_path):
-    """serve's --compile-cache (but `off`) and --warmup-plan PATH (but
-    `auto` / `off`) wait for ROADMAP item 14: exit 2 before anything
-    starts or is written."""
+    """serve takes `--compile-cache` and `--warmup-plan PATH` (refused
+    until the program store came): the announce line names the active
+    store (none for `auto` next to a model FILE) and the plan path, and
+    the smoke server records its plan there on the way out."""
+    from deeplearning4j_tpu_torch import compilecache as cc
+
     argv = ["serve", "-m", "m.ckpt", flag, value, "--smoke"]
     jcli.build_parser().parse_args(argv)
-    cwd = os.getcwd()
-    os.chdir(tmp_path)
+    argv[2] = str(ws["conf"])
+    if value != "auto":
+        argv[4] = str(tmp_path / value)
+    cc.deactivate()
     try:
         rc, out, err = run("port", *argv)
     finally:
-        os.chdir(cwd)
-    assert rc == 2 and out == ""
-    assert flag in err and "ROADMAP Queue 1 item 14" in err
-    assert not os.listdir(tmp_path)
+        cc.deactivate()
+    assert rc == 0, err
+    announce = last_json(out)
+    if flag == "--warmup-plan":
+        assert announce["warmup_plan"] == argv[4]
+        assert announce["compile_cache"] is None
+        assert os.path.exists(argv[4])  # recorded after the warmup
+    elif value == "auto":
+        assert announce["compile_cache"] is None
+        assert announce["warmup_plan"] is None
+    else:
+        assert announce["compile_cache"] == argv[4]
+        assert announce["warmup_plan"].startswith(
+            os.path.join(argv[4], "plans"))
 
 
 def test_the_parser_takes_every_jax_subcommand_and_flag():

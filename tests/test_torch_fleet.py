@@ -690,7 +690,7 @@ class TestCLIFleetSpawn:
     """`cli fleet` spawning `cli serve` replicas: `--device` reaches each
     replica (the tests ask for the CPU), a replica asked for the card on
     a machine without one fails its spawn with its output tail, and
-    `--compile-cache` waits for ROADMAP item 14c."""
+    `--compile-cache` reaches each replica through its environment."""
 
     def _conf(self, tmp_path):
         path = tmp_path / "conf.json"
@@ -754,13 +754,26 @@ class TestCLIFleetSpawn:
              "--device", args.device, *args.serve_arg])
         assert serve.device == "cuda"  # the later occurrence wins
 
-    def test_compile_cache_is_refused_naming_its_item(self, capsys):
-        from deeplearning4j_tpu_torch.cli import main
-
-        assert main(["fleet", "-m", "m.ckpt", "--compile-cache", "auto",
-                     "--device", "cpu"]) == 2
-        err = capsys.readouterr().err
-        assert "--compile-cache" in err and "item 14c" in err
+    def test_compile_cache_is_refused_naming_its_item(self, tmp_path):
+        """`fleet --compile-cache DIR` (refused until the program store
+        came) activates the store before the spawner snapshots its
+        environment: the spawned replica inherits it through
+        DL4J_TPU_COMPILE_CACHE alone and leaves its warmup plan and its
+        programs' signatures there."""
+        conf = self._conf(tmp_path)
+        cache = tmp_path / "cache"
+        res = self._run(["fleet", "-m", conf, "--replicas", "1",
+                         "--device", "cpu", "--smoke",
+                         "--heartbeat-interval", "0.1",
+                         "--compile-cache", str(cache)], tmp_path)
+        assert res.returncode == 0, res.stderr
+        out = json.loads(res.stdout.strip().splitlines()[-1])
+        assert out["replicas"]["ready"] == 1
+        plans = list((cache / "plans").glob("*.json"))
+        assert len(plans) == 1
+        plan = json.loads(plans[0].read_text())
+        assert plan["engines"] and plan["engines"][0]["buckets"]
+        assert list(cache.glob("v1/*/*.xc"))
 
 
 # ------------------------------------------------- control-plane drills

@@ -720,16 +720,30 @@ class TestCliSurface:
 
     def test_cli_pipeline_refuses_the_compile_cache_and_no_card(
             self, tmp_path, capsys):
-        """`--compile-cache` (but `off`) waits for ROADMAP item 14c, and
-        `--device cuda` without a card exits 2 before anything runs."""
+        """`--compile-cache` (refused until the program store came) is
+        taken: `auto` next to a checkpoint dir that does not exist is a
+        no-op, a path activates the store for the replicas the
+        controller spawns; `--device cuda` without a card exits 2 before
+        anything runs."""
+        from deeplearning4j_tpu_torch import compilecache as cc
         from deeplearning4j_tpu_torch.cli import main
 
         ck_dir = str(tmp_path / "ck")
         base = ["pipeline", "--checkpoint-dir", ck_dir, "--fleet-url",
                 "http://127.0.0.1:9", "--smoke"]
-        assert main(base + ["--compile-cache", "auto"]) == 2
-        err = capsys.readouterr().err
-        assert "--compile-cache" in err and "item 14c" in err
+        cc.deactivate()
+        try:
+            assert main(base + ["--compile-cache", "auto", "--device",
+                                "cpu"]) == 0
+            assert cc.active_dir() is None
+            cache = str(tmp_path / "cache")
+            assert main(base + ["--compile-cache", cache, "--device",
+                                "cpu"]) == 0
+            assert cc.active_dir() == cache
+            assert os.environ[cc.CACHE_ENV] == cache
+        finally:
+            cc.deactivate()
+        capsys.readouterr()
         if not __import__("torch").cuda.is_available():
             assert main(base) == 2
             assert "no CUDA device" in capsys.readouterr().err

@@ -1,12 +1,14 @@
 """The PyTorch port's public surface held against the JAX package's, on
 the CPU: every name a JAX `__init__.py` imports exists on the port's
 counterpart package (an `ast` walk of the JAX files: nothing of the JAX
-package is imported to list them), and DataSet interchange
-(`utils/interop.py`) of bfloat16 data.
+package is imported to list them), every `.py` file of the JAX package
+has its counterpart file in the port (the two Pallas files map to the
+port's kernel wrappers), and DataSet interchange (`utils/interop.py`) of
+bfloat16 data.
 
-Names of modules still to be ported are listed in NOT_YET_PORTED with
-their ROADMAP item; the walk also checks that each of them is still
-missing, so the list shrinks as the port grows.
+NOT_YET_PORTED lists names still to be ported, with their ROADMAP item;
+it is empty: the port has every module of the JAX package. The walk
+checks each listed name is still missing, so the list can only shrink.
 """
 
 from __future__ import annotations
@@ -23,12 +25,15 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 JAX_PKG = REPO / "deeplearning4j_tpu"
 
 #: package -> {name: ROADMAP Queue 1 item that brings it}
-NOT_YET_PORTED = {
-    "compilecache": {"*": "14c"},
-    "scaleout": {name: "14e" for name in (
-        "ArtifactStore", "StorageDataSetIterator", "ClusterSetup",
-        "HostProvisioner", "LocalTransport", "SshTransport")},
+NOT_YET_PORTED: dict = {}
+
+#: JAX files whose counterpart in the port has another name: the Pallas
+#: kernels' wrappers, over the CUDA kernels in `csrc/`
+RENAMED = {
+    "attention/flash_pallas.py": "attention/flash.py",
+    "attention/paged_pallas.py": "attention/paged.py",
 }
+PORT_PKG = REPO / "deeplearning4j_tpu_torch"
 
 
 def _init_files():
@@ -71,6 +76,25 @@ def test_every_jax_package_name_exists_on_the_port(path):
             f"{port_name}.{name} exists now: drop it from NOT_YET_PORTED"
 
 
+def _jax_modules():
+    return sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py")
+                  if "__pycache__" not in p.parts)
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_every_jax_module_file_has_a_port_counterpart(rel):
+    ported = PORT_PKG / RENAMED.get(rel, rel)
+    assert ported.is_file(), f"deeplearning4j_tpu/{rel} has no counterpart"
+
+
+def test_the_file_walk_sees_every_subpackage():
+    mods = _jax_modules()
+    assert len(mods) > 150
+    assert {"compilecache/warmup.py", "scaleout/perform_nlp.py",
+            "utils/jitcache.py", "attention/paged_pallas.py"} <= set(mods)
+    assert all((PORT_PKG / r).is_file() for r in RENAMED.values())
+
+
 def test_the_walk_covers_the_core_reexports():
     from deeplearning4j_tpu_torch import MultiLayerNetwork as top
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
@@ -86,7 +110,7 @@ def test_the_walk_covers_the_core_reexports():
         "deeplearning4j_tpu_torch.")
     walked = {_sub(p) for p in _init_files()}
     assert {"", "nn", "ops", "serving", "utils", "models",
-            "scaleout"} <= walked
+            "scaleout", "compilecache"} <= walked
 
 
 # --------------------------------------------------------- bf16 interop
