@@ -166,8 +166,8 @@ def _activate_compile_cache(spec: Optional[str],
 class _Telemetry:
     """Shared --metrics-port / --trace plumbing for train, serve, fleet
     and pipeline: an optional standalone /metrics endpoint for the run's
-    lifetime, and a Chrome-trace dump (telemetry/trace.py, host spans
-    only; the torch.profiler bridge stays off) on exit."""
+    lifetime, and a Chrome-trace dump (telemetry/trace.py: host spans,
+    stamped on torch.profiler's clock) on exit."""
 
     def __init__(self, args):
         self.metrics = None

@@ -31,7 +31,9 @@ copies, the counterpart of the JAX package's `datasets/device_feed.py`.
 Telemetry, the JAX package's series: `dl4j_feed_batches`,
 `dl4j_feed_padded_examples`, `dl4j_feed_bucket_hits{bucket=}` and the
 `dl4j_feed_prefetch_depth` gauge, process-wide twins of `stats()`
-(host counters; nothing is read from the device).
+(host counters; nothing is read from the device). Spans (telemetry/
+trace.py): `feed.fetch`, the source's next batch and its padding, and
+`feed.put`, the local slice, the pinning and the copy's enqueue.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import default_device, telemetry
+from deeplearning4j_tpu_torch.telemetry.trace import span
 
 __all__ = ["FeedBatch", "DeviceFeed", "feed_mask", "pow2_buckets",
            "bucket_for", "pad_rows", "DEFAULT_MIN_BUCKET"]
@@ -63,6 +66,8 @@ _M_QUEUE = telemetry.gauge(
 #: smallest bucket of the default ladder: tiny tail batches share one
 #: shape instead of one each
 DEFAULT_MIN_BUCKET = 8
+#: the end of a source's batches
+_END = object()
 
 
 def feed_mask(n_rows: int, n_valid, device=None, offset: int = 0):
@@ -221,8 +226,9 @@ class DeviceFeed:
                 a = self.sharding.local(a)
             return torch.from_numpy(np.require(a, requirements=["C", "W"]))
 
-        return FeedBatch(put(host(f)), put(host(l)),
-                         put(torch.tensor(n, dtype=torch.int32)))
+        with span("feed.put"):
+            return FeedBatch(put(host(f)), put(host(l)),
+                             put(torch.tensor(n, dtype=torch.int32)))
 
     # ---------------------------------------------------------- streaming
     def fast_forward(self, n: int) -> None:
@@ -239,11 +245,17 @@ class DeviceFeed:
         self.source.reset()
         skip, self._skip_next = self._skip_next, 0
         self.cursor = skip
-        for ds in self.source:
-            if skip > 0:
-                skip -= 1
-                continue
-            yield self._pad(ds)
+        source = iter(self.source)
+        for _ in range(skip):
+            if next(source, _END) is _END:
+                return
+        while True:
+            with span("feed.fetch"):
+                ds = next(source, _END)
+                padded = None if ds is _END else self._pad(ds)
+            if padded is None:
+                return
+            yield padded
 
     def __iter__(self) -> Iterator[FeedBatch]:
         """One epoch: bucketed batches with up to `prefetch` copies in

@@ -41,7 +41,10 @@ generator with (seed, rank), so the shards do not share dropout masks.
 
 Telemetry: the `dl4j_train_*` series with
 `dl4j_train_step_seconds{source="parallel"}`, and the span
-`parallel_train_step`. With a program store active (`compilecache`) the
+`parallel_train_step` over `dp.grads` (the masked local loss and its
+backward), `dp.allreduce` (the flat all-reduce) and `dp.update` (the
+updater and the parameters' step); the device feed's `feed.fetch` and
+`feed.put` run between steps. With a program store active (`compilecache`) the
 step and the guarded step go through `compilecache.bind_program` under
 `_aot_key(tag)` — config digest, trainer class, mesh, axis and device
 set, the JAX package's key — so every subclass (ZeRO-1, TP) dispatches
@@ -176,7 +179,8 @@ class DataParallelTrainer:
         """Sum the ranks' scaled losses and gradients over the data axis,
         in place; returns the global score."""
         score = score.reshape(1)
-        all_reduce_flat([score, *grads], self.mesh, self.axis)
+        with span("dp.allreduce"):
+            all_reduce_flat([score, *grads], self.mesh, self.axis)
         return score[0]
 
     def _grads(self, params, x, labels, n_valid):
@@ -190,7 +194,7 @@ class DataParallelTrainer:
         if n_valid is None:
             count = rows * n
         leaves = _leaves(params)
-        with torch.enable_grad():
+        with span("dp.grads"), torch.enable_grad():
             score = self._loss(params, x, labels, weights)
             if n > 1:
                 share = (weights.sum() / count.to(weights.dtype)
@@ -207,9 +211,10 @@ class DataParallelTrainer:
     def _step(self, x, labels, n_valid=None) -> torch.Tensor:
         params, state = self._params()
         score, grads, count = self._grads(params, x, labels, n_valid)
-        updates, _ = self.updater.update(grads, state, params, count)
-        for p, u in zip(_leaves(params), _leaves(updates)):
-            p.sub_(u)
+        with span("dp.update"):
+            updates, _ = self.updater.update(grads, state, params, count)
+            for p, u in zip(_leaves(params), _leaves(updates)):
+                p.sub_(u)
         return score
 
     @torch.no_grad()
@@ -219,20 +224,21 @@ class DataParallelTrainer:
         so every rank commits or skips together."""
         params, state = self._params()
         score, grads, count = self._grads(params, x, labels, n_valid)
-        ok = all_finite(score, grads, axis_name=self._finite_axes)
-        leaves = _leaves(params)
-        hist = [t for s in state.values() for t in s.hist.values()]
-        vel = [t for s in state.values() for t in s.velocity.values()]
-        its = [s.iteration for s in state.values()]
-        old_hist = torch._foreach_mul(hist, 1.0)
-        old_vel = torch._foreach_mul(vel, 1.0)
-        updates, _ = self.updater.update(grads, state, params, count)
-        new = torch._foreach_sub(leaves, apply_lr_scale(_leaves(updates),
-                                                        gstate))
-        commit(ok, leaves, new, out=leaves)
-        commit(ok, old_hist + old_vel, hist + vel, out=hist + vel)
-        skipped = torch.logical_not(ok).to(torch.int32)
-        torch._foreach_sub_(its, [skipped] * len(its))
+        with span("dp.update"):
+            ok = all_finite(score, grads, axis_name=self._finite_axes)
+            leaves = _leaves(params)
+            hist = [t for s in state.values() for t in s.hist.values()]
+            vel = [t for s in state.values() for t in s.velocity.values()]
+            its = [s.iteration for s in state.values()]
+            old_hist = torch._foreach_mul(hist, 1.0)
+            old_vel = torch._foreach_mul(vel, 1.0)
+            updates, _ = self.updater.update(grads, state, params, count)
+            new = torch._foreach_sub(leaves, apply_lr_scale(
+                _leaves(updates), gstate))
+            commit(ok, leaves, new, out=leaves)
+            commit(ok, old_hist + old_vel, hist + vel, out=hist + vel)
+            skipped = torch.logical_not(ok).to(torch.int32)
+            torch._foreach_sub_(its, [skipped] * len(its))
         return score, advance(gstate, ok)
 
     # ----------------------------------------------------------- batches

@@ -108,7 +108,11 @@ dl4j_decode_deadline_exceeded / dl4j_decode_cancelled /
 dl4j_kv_prefix_{hits,misses,forks,evictions} / dl4j_spec_* /
 dl4j_tier_* / dl4j_decode_kv_read_bytes{path} counters and the
 dl4j_decode_step_seconds histogram, under the JAX package's names, help
-strings and labels. Chaos points: `decode.step`, `decode.fork`,
+strings and labels. Spans (telemetry/trace.py), on the scheduler thread:
+`decode.tick` over `decode.admit` (one `decode.prefill` a prefill group,
+naming its requests' `rid`s), `decode.grant`, `decode.upload`,
+`decode.replay` (the region the step histogram times, from the same two
+clock readings) and `decode.emit`. Chaos points: `decode.step`, `decode.fork`,
 `fleet.kv_summary`, `fleet.kv_ship`, `disagg.handoff`.
 
 `kernel="auto"|"kernel"|"gather"` picks the decode attention read
@@ -163,6 +167,7 @@ from deeplearning4j_tpu_torch.serving.paged_kv import (copy_page,
                                                        prompt_buckets)
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixIndex
 from deeplearning4j_tpu_torch.serving.speculation import build_drafter
+from deeplearning4j_tpu_torch.telemetry.trace import add_span, span
 from deeplearning4j_tpu_torch.testing import chaos
 from deeplearning4j_tpu_torch.utils.digest import config_digest
 from deeplearning4j_tpu_torch.weights import params_to_device
@@ -240,6 +245,9 @@ class GenerationStream:
         #: ride in as prompt; the streaming front end adds it to each
         #: token's `token_index` (the router's exactly-once dedupe key)
         self.token_index_base = 0
+        #: the loop's id of this request, set at submit (a prefill
+        #: span's `rids` name the requests it admitted)
+        self.rid: Optional[int] = None
         self.finish_reason: Optional[str] = None
         self.error: Optional[BaseException] = None
         self._generated: List[int] = []
@@ -542,6 +550,7 @@ class DecodeLoop:
         self._eager_shapes: set = set()
 
         # counters ------------------------------------------------------
+        self._rid_seq = itertools.count()
         self._prefill_token_count = 0
         #: (batch bucket, prompt bucket) of every cold prefill group and
         #: (batch bucket, cached-page bucket, tail bucket) of every warm one
@@ -840,6 +849,8 @@ class DecodeLoop:
                         retry_after_ms=backlog_retry_ms(
                             tier_q + len(prompts), _TIER_ITEM_MS[tier]),
                         tier=tier)
+            for stream in streams:
+                stream.rid = next(self._rid_seq)
             self._counts.add("requests", len(streams))
             self._tier_requests.add(tier, len(streams))
             self._waiting.extend(streams)
@@ -1539,33 +1550,36 @@ class DecodeLoop:
         pages, run one dispatch if any slot can advance, emit tokens,
         retire finished slots. Returns True if a dispatch ran. Public so
         tests (and `start=False` callers) can drive the loop."""
-        self._reap()
-        # shipped-page installs and handoff prefills land before
-        # admission, so the very next `_admit` match sees them
-        self._service_kv_jobs()
-        # chaos: a "delay" rule paces every scheduler pass; an "error"
-        # drills the fail-loudly path in _run
-        chaos.hit("decode.step")
-        self._admit()
-        ran = self._dispatch_spec() if self.spec_k else \
-            self._dispatch_plain()
-        if not ran:
-            # no dispatch ran (e.g. every admitted request has
-            # max_tokens=1): deferred prefill tokens still must reach
-            # their streams
-            self._flush_first_tokens()
-            with self._cond:
-                stuck = (self.occupied_slots > 0
-                         and self._avail_pages() == 0
-                         and all(s is None
-                                 or self._stop[i] <= self._lengths[i]
-                                 for i, s in enumerate(self._slot_state)))
-            if stuck:
-                self._fail_all(RuntimeError(
-                    "KV page pool exhausted with every slot stalled — no "
-                    "completion can free a page; size the pool with "
-                    "paged_kv_bytes"))
-        return ran
+        with span("decode.tick"):
+            self._reap()
+            # shipped-page installs and handoff prefills land before
+            # admission, so the very next `_admit` match sees them
+            self._service_kv_jobs()
+            # chaos: a "delay" rule paces every scheduler pass; an "error"
+            # drills the fail-loudly path in _run
+            chaos.hit("decode.step")
+            with span("decode.admit"):
+                self._admit()
+            ran = self._dispatch_spec() if self.spec_k else \
+                self._dispatch_plain()
+            if not ran:
+                # no dispatch ran (e.g. every admitted request has
+                # max_tokens=1): deferred prefill tokens still must reach
+                # their streams
+                with span("decode.emit"):
+                    self._flush_first_tokens()
+                with self._cond:
+                    stuck = (self.occupied_slots > 0
+                             and self._avail_pages() == 0
+                             and all(s is None
+                                     or self._stop[i] <= self._lengths[i]
+                                     for i, s in enumerate(self._slot_state)))
+                if stuck:
+                    self._fail_all(RuntimeError(
+                        "KV page pool exhausted with every slot stalled — no "
+                        "completion can free a page; size the pool with "
+                        "paged_kv_bytes"))
+            return ran
 
     def run_until_idle(self, max_ticks: int = 100_000) -> None:
         """Drive the loop inline until nothing is queued or in flight
@@ -1737,22 +1751,26 @@ class DecodeLoop:
             tb = next(b for b in self._buckets if b >= item[3])
             by_bucket.setdefault(tb, []).append(item)
         for tb, group in by_bucket.items():
-            bb = _pow2(len(group))
-            padded = np.zeros((bb, tb), np.int32)
-            lens = np.ones((bb,), np.int32)  # pad rows: true_len 1
-            pids = np.full((bb, tb // ps), self._trash, np.int32)
-            for row, (idx, stream, pages, plen, _cov) in enumerate(group):
-                padded[row, :plen] = stream.prompt
-                lens[row] = plen
-                pids[row, :len(pages)] = pages
-                self._prefill_token_count += plen
-            self._prefill_groups.add((bb, tb))
-            logits = self._program("prefill", self._to_device(padded),
-                                   self._to_device(lens),
-                                   self._to_device(pids))
-            self._install_prefilled(group,
-                                    torch.argmax(logits, dim=-1)
-                                    .to(torch.int32))
+            with span("decode.prefill") as sp:
+                bb = _pow2(len(group))
+                if sp is not None:
+                    sp.args.update(_prefill_args(group, [bb, tb]))
+                padded = np.zeros((bb, tb), np.int32)
+                lens = np.ones((bb,), np.int32)  # pad rows: true_len 1
+                pids = np.full((bb, tb // ps), self._trash, np.int32)
+                for row, (idx, stream, pages, plen, _cov) in enumerate(
+                        group):
+                    padded[row, :plen] = stream.prompt
+                    lens[row] = plen
+                    pids[row, :len(pages)] = pages
+                    self._prefill_token_count += plen
+                self._prefill_groups.add((bb, tb))
+                logits = self._program("prefill", self._to_device(padded),
+                                       self._to_device(lens),
+                                       self._to_device(pids))
+                self._install_prefilled(group,
+                                        torch.argmax(logits, dim=-1)
+                                        .to(torch.int32))
         # warm tails ride the ctx-aware prefill, bucketed by (cached
         # pages, tail length); tails start on a page boundary
         by_ctx: dict = {}
@@ -1762,30 +1780,34 @@ class DecodeLoop:
             tb = next(b for b in self._buckets if b >= plen - covered)
             by_ctx.setdefault((cb, tb), []).append(item)
         for (cb, tb), group in by_ctx.items():
-            bb = _pow2(len(group))
-            padded = np.zeros((bb, tb), np.int32)
-            lens = np.ones((bb,), np.int32)
-            pids = np.full((bb, tb // ps), self._trash, np.int32)
-            ctab = np.full((bb, cb), self._trash, np.int32)
-            clen = np.zeros((bb,), np.int32)
-            for row, (idx, stream, pages, plen, cov) in enumerate(group):
-                cp = cov // ps
-                tl = plen - cov
-                padded[row, :tl] = stream.prompt[cov:]
-                lens[row] = tl
-                pids[row, :len(pages) - cp] = pages[cp:]
-                ctab[row, :cp] = pages[:cp]
-                clen[row] = cov
-                self._prefill_token_count += tl
-            self._prefill_ctx_groups.add((bb, cb, tb))
-            logits = self._program(
-                "prefill_ctx",
-                self._to_device(padded), self._to_device(lens),
-                self._to_device(pids), self._to_device(ctab),
-                self._to_device(clen))
-            self._install_prefilled(group,
-                                    torch.argmax(logits, dim=-1)
-                                    .to(torch.int32))
+            with span("decode.prefill") as sp:
+                bb = _pow2(len(group))
+                if sp is not None:
+                    sp.args.update(_prefill_args(group, [bb, cb, tb]))
+                padded = np.zeros((bb, tb), np.int32)
+                lens = np.ones((bb,), np.int32)
+                pids = np.full((bb, tb // ps), self._trash, np.int32)
+                ctab = np.full((bb, cb), self._trash, np.int32)
+                clen = np.zeros((bb,), np.int32)
+                for row, (idx, stream, pages, plen, cov) in enumerate(
+                        group):
+                    cp = cov // ps
+                    tl = plen - cov
+                    padded[row, :tl] = stream.prompt[cov:]
+                    lens[row] = tl
+                    pids[row, :len(pages) - cp] = pages[cp:]
+                    ctab[row, :cp] = pages[:cp]
+                    clen[row] = cov
+                    self._prefill_token_count += tl
+                self._prefill_ctx_groups.add((bb, cb, tb))
+                logits = self._program(
+                    "prefill_ctx",
+                    self._to_device(padded), self._to_device(lens),
+                    self._to_device(pids), self._to_device(ctab),
+                    self._to_device(clen))
+                self._install_prefilled(group,
+                                        torch.argmax(logits, dim=-1)
+                                        .to(torch.int32))
         if cold or warm:
             self._mark_pool_written()
 
@@ -1844,7 +1866,7 @@ class DecodeLoop:
         in that window, and set its device `stop` bound to the granted
         frontier — a slot the pool cannot extend stops advancing there."""
         adv = (self.spec_k + 1) if self.spec_k else self.horizon
-        with self._cond:
+        with span("decode.grant"), self._cond:
             for i, slot in enumerate(self._slot_state):
                 if slot is None:
                     continue
@@ -2001,7 +2023,7 @@ class DecodeLoop:
         # captured at the first dispatch that runs a slot (so a loop
         # that never decodes, e.g. a prefill-role one, captures nothing)
         self._ensure_graph("step")
-        with self._cond:
+        with span("decode.upload"), self._cond:
             runnable = self._runnable()
             before = self._lengths.copy()
             if self._dirty:
@@ -2015,12 +2037,14 @@ class DecodeLoop:
                 idxs = torch.tensor([i for _, i in members],
                                     device=self.device)
                 self._d_tokens[idxs] = arr[rows]
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         self._program("step")
         self._plan_step = True
         # the (K, S) token copy to the host is the sync the streams need
         toks = self._d_out.cpu().numpy()
-        self._observe_step(time.perf_counter() - t0)
+        t1 = time.perf_counter_ns()
+        self._observe_step((t1 - t0) * 1e-9)
+        add_span("decode.replay", t0, t1)
         self._counts.add("dispatches")
         # KV read accounting mirroring the chain: inner step k runs at
         # cursor before+k, clamped at each slot's stop bound
@@ -2031,21 +2055,23 @@ class DecodeLoop:
                 self._pool, cur, self._pps))
             self._kv_read.add("gather", decode_read_bytes(
                 self._pool, cur, self._pps, dense=True))
-        self._flush_first_tokens()  # emit firsts BEFORE chunk tokens
-        for i in runnable:
-            slot = self._slot_state[i]
-            if slot is None:  # retired at flush (eos on first token)
-                continue
-            consumed = min(self.horizon, int(self._stop[i] - before[i]))
-            with self._cond:
-                self._lengths[i] = before[i] + consumed
-            for j in range(consumed):
-                tok = int(toks[j, i])
-                self._pending[i] = tok
-                slot.emitted += 1
-                self._emit_and_maybe_finish(i, slot, tok)
-                if self._slot_state[i] is None:
-                    break  # retired: discard the chain's overshoot
+        with span("decode.emit"):
+            self._flush_first_tokens()  # emit firsts BEFORE chunk tokens
+            for i in runnable:
+                slot = self._slot_state[i]
+                if slot is None:  # retired at flush (eos on first token)
+                    continue
+                consumed = min(self.horizon,
+                               int(self._stop[i] - before[i]))
+                with self._cond:
+                    self._lengths[i] = before[i] + consumed
+                for j in range(consumed):
+                    tok = int(toks[j, i])
+                    self._pending[i] = tok
+                    slot.emitted += 1
+                    self._emit_and_maybe_finish(i, slot, tok)
+                    if self._slot_state[i] is None:
+                        break  # retired: discard the chain's overshoot
         return True
 
     # ---- speculative dispatch (draft k on the host, verify k+1 wide)
@@ -2060,7 +2086,8 @@ class DecodeLoop:
         self._ensure_graph("step")
         self._ensure_graph("verify")
         if self._deferred:
-            self._flush_first_tokens()
+            with span("decode.emit"):
+                self._flush_first_tokens()
             self._dirty = True  # firsts never reached the device carry
         self._grant_pages()
         with self._cond:
@@ -2119,12 +2146,15 @@ class DecodeLoop:
         v_lengths[:] = before
         v_widths[:] = widths
         v_table[:] = self._table
-        t0 = time.perf_counter()
-        self._vd_ctrl.copy_(torch.from_numpy(self._vh_ctrl))
+        with span("decode.upload"):
+            self._vd_ctrl.copy_(torch.from_numpy(self._vh_ctrl))
+        t0 = time.perf_counter_ns()
         self._program("verify")
         self._plan_verify = True
         out = self._v_out.cpu().numpy()  # (S, W) argmax
-        self._observe_step(time.perf_counter() - t0)
+        t1 = time.perf_counter_ns()
+        self._observe_step((t1 - t0) * 1e-9)
+        add_span("decode.replay", t0, t1)
         self._counts.add("dispatches")
         self._spec_counts.add("rounds")
         # column j of slot i attends at cursor before+j (clamped to its
@@ -2135,25 +2165,26 @@ class DecodeLoop:
                 self._pool, cur, self._pps))
             self._kv_read.add("gather", decode_read_bytes(
                 self._pool, cur, self._pps, dense=True))
-        for i in runnable:
-            slot = self._slot_state[i]
-            if slot is None:
-                continue
-            prop = proposals.get(i, [])
-            m = 0
-            while m < len(prop) and prop[m] == int(out[i, m]):
-                m += 1
-            with self._cond:
-                self._lengths[i] = before[i] + m + 1
-            if prop:
-                self._spec_counts.add("accepted", m)
-            for j in range(m + 1):
-                tok = int(out[i, j])
-                self._pending[i] = tok
-                slot.emitted += 1
-                self._emit_and_maybe_finish(i, slot, tok)
-                if self._slot_state[i] is None:
-                    break  # retired (eos/budget): overshoot discarded
+        with span("decode.emit"):
+            for i in runnable:
+                slot = self._slot_state[i]
+                if slot is None:
+                    continue
+                prop = proposals.get(i, [])
+                m = 0
+                while m < len(prop) and prop[m] == int(out[i, m]):
+                    m += 1
+                with self._cond:
+                    self._lengths[i] = before[i] + m + 1
+                if prop:
+                    self._spec_counts.add("accepted", m)
+                for j in range(m + 1):
+                    tok = int(out[i, j])
+                    self._pending[i] = tok
+                    slot.emitted += 1
+                    self._emit_and_maybe_finish(i, slot, tok)
+                    if self._slot_state[i] is None:
+                        break  # retired (eos/budget): overshoot discarded
         # host cursors moved without the plain device carry: a later
         # plain dispatch must re-upload
         self._dirty = True
@@ -2220,6 +2251,16 @@ def _copy_params(dst, src) -> None:
             _copy_params(d, s)
     else:
         dst.copy_(torch.as_tensor(src).to(dst.device))
+
+
+def _prefill_args(group, bucket: list) -> dict:
+    """A `decode.prefill` span's args: the group's real rows, its bucket
+    (rows, tokens; a warm tail's rows, cached pages, tail tokens), the
+    prompt tokens it prefills (a warm tail's only) and the admitted
+    requests' ids."""
+    return {"rows": len(group), "bucket": bucket,
+            "tokens": sum(plen - cov for _i, _s, _p, plen, cov in group),
+            "rids": [stream.rid for _i, stream, _p, _l, _c in group]}
 
 
 def _pow2(n: int) -> int:

@@ -26,8 +26,9 @@ process-global `MetricsRegistry`:
 
 Export: `GET /metrics` (Prometheus text) and `GET /snapshot` (JSON) on
 the serving server or a standalone `exposition.start_metrics_server()`.
-Tracing: `span("name")` regions with Chrome-trace export and an opt-in
-`torch.profiler.record_function` bridge (trace.py).
+Tracing: `span("name")` regions on the profiler's clock, with
+Chrome-trace export (trace.py); the spans of the decode loop, the device
+feed and the data-parallel step are listed there.
 """
 
 from deeplearning4j_tpu_torch.telemetry.registry import (  # noqa: F401

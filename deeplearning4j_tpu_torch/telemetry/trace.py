@@ -1,23 +1,42 @@
-"""Span-based step tracing with Chrome-trace export and an xprof bridge.
+"""Span-based step tracing on the profiler's clock, with Chrome-trace
+export.
 
 `span("train_step")` wraps a host-side region; spans nest per thread
-(parent/child from a thread-local stack), clock on
-`time.perf_counter_ns` (monotonic), and land in a bounded in-memory
-buffer. Export is Chrome trace format (`chrome://tracing` /
-Perfetto-compatible `{"traceEvents": [...]}` with "X" complete events),
-so a training run's host timeline opens in the same tooling as a device
-profile.
+(depth from a thread-local counter), clock on `time.perf_counter_ns`
+(monotonic), and land in a bounded in-memory buffer. Export is Chrome
+trace format (`chrome://tracing` / Perfetto-compatible `{"traceEvents":
+[...]}` with "X" complete events).
 
-Off by default: until `start_tracing()` (or the CLI's `--trace`), a
-span is a no-op context manager — a couple of attribute loads per use,
-cheap enough to leave in the hot fit/serve loops permanently.
+One clock with the profiler: `start_tracing()` reads one anchor pair,
+`time.perf_counter_ns` beside the profiler's clock
+(`profiler_clock_ns`: torch.profiler stamps its host and device events,
+and `kineto_results.trace_start_ns()`, in Unix-epoch nanoseconds).
+`Tracer.to_profiler_ns` converts a span's times with it, and the Chrome
+export writes `ts` on the profiler's clock, so a span lies over the
+CUDA calls and device work it enqueued (torch.profiler's own export
+writes the same clock less its `baseTimeNanoseconds`).
 
-Opt-in profiler bridge: `start_tracing(profiler_annotations=True)`
-additionally enters `torch.profiler.record_function(name)` for every
-span, so when a `torch.profiler` window is open
-(optimize/listeners.ProfilerListener) the host spans line up against the
-device timeline in the profiler's trace: step phases as first-class
-trace data, not log lines.
+Off by default: until `start_tracing()` (or the CLI's `--trace`),
+`span()` returns one shared no-op context and allocates nothing, cheap
+enough to leave in the hot fit/serve loops permanently. A span only
+reads the host's clock: it adds no synchronize and changes nothing the
+device runs.
+
+The spans in the port, each on the thread that does the work:
+
+- serving/decode_loop.py: `decode.tick` (one scheduler pass) over
+  `decode.admit` (with one `decode.prefill` a prefill group: `rows`,
+  `bucket`, `tokens`, `rids`), `decode.grant`, `decode.upload`,
+  `decode.replay` (the region `dl4j_decode_step_seconds` times) and
+  `decode.emit`;
+- datasets/device_feed.py: `feed.fetch` (the source's next batch and its
+  padding) and `feed.put` (the local slice, pinning, the copy's
+  enqueue);
+- parallel/data_parallel.py: `parallel_train_step` over `dp.grads`,
+  `dp.allreduce` and `dp.update`;
+- nn/multilayer.py `train_step`, `fit_scan`, `fit_scan_epoch`;
+  serving/engine.py `engine_infer`; checkpoint/writer.py
+  `ckpt_snapshot`, `ckpt_write`.
 """
 
 from __future__ import annotations
@@ -26,12 +45,14 @@ import json
 import os
 import threading
 import time
-from contextlib import contextmanager
-from typing import List, NamedTuple, Optional
+from collections import deque
+from contextlib import nullcontext
+from typing import List, NamedTuple, Optional, Tuple
 
 __all__ = [
-    "SpanRecord", "Tracer", "span", "start_tracing", "stop_tracing",
-    "tracing", "active_tracer", "chrome_trace", "save_chrome_trace",
+    "SpanRecord", "Tracer", "span", "add_span", "start_tracing",
+    "stop_tracing", "tracing", "active_tracer", "chrome_trace",
+    "save_chrome_trace", "profiler_clock_ns",
 ]
 
 
@@ -47,17 +68,37 @@ class SpanRecord(NamedTuple):
     args: dict
 
 
-class Tracer:
-    """Bounded span buffer + per-thread nesting state."""
+def profiler_clock_ns() -> int:
+    """A reading of torch.profiler's clock: Unix-epoch nanoseconds, the
+    clock of its events and of `kineto_results.trace_start_ns()`."""
+    return time.time_ns()
 
-    def __init__(self, max_spans: int = 100_000,
-                 profiler_annotations: bool = False):
-        from collections import deque
+
+def _anchor() -> Tuple[int, int]:
+    """(perf_counter_ns, profiler_clock_ns) of one instant: the
+    profiler's clock read between two perf_counter readings, their
+    midpoint taken, from the tightest of five tries."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        p = profiler_clock_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, p)
+    return best[1], best[2]
+
+
+class Tracer:
+    """Bounded span buffer, per-thread nesting state and the anchor pair
+    that puts its spans on the profiler's clock."""
+
+    def __init__(self, max_spans: int = 100_000):
         self.max_spans = int(max_spans)
-        self.profiler_annotations = bool(profiler_annotations)
         self._spans = deque(maxlen=self.max_spans)
         self._local = threading.local()
         self._lock = threading.Lock()
+        #: (perf_counter_ns, profiler_clock_ns) read together
+        self.anchor = _anchor()
 
     # ------------------------------------------------------------ record
     def _depth(self) -> int:
@@ -75,6 +116,13 @@ class Tracer:
         with self._lock:
             self._spans.append(rec)
 
+    def add(self, name: str, start_ns: int, end_ns: int, **args) -> None:
+        """Record a span from two perf_counter_ns readings the caller
+        took itself (a region another reader times too), nested at the
+        calling thread's current depth."""
+        self.record(SpanRecord(name, start_ns, end_ns - start_ns,
+                               threading.get_ident(), self._depth(), args))
+
     def spans(self) -> List[SpanRecord]:
         with self._lock:
             return list(self._spans)
@@ -83,12 +131,16 @@ class Tracer:
         with self._lock:
             self._spans.clear()
 
+    def to_profiler_ns(self, perf_ns: int) -> int:
+        """A perf_counter_ns reading on the profiler's clock."""
+        return perf_ns - self.anchor[0] + self.anchor[1]
+
     # ------------------------------------------------------------ export
     def chrome_trace(self) -> dict:
-        """Chrome trace format dict: "X" (complete) events, microsecond
-        timestamps. Nesting is reconstructed by the viewer from
-        timestamp containment per tid; `depth` rides in args for
-        programmatic consumers."""
+        """Chrome trace format dict: "X" (complete) events, `ts` in
+        microseconds on the profiler's clock. Nesting is reconstructed
+        by the viewer from timestamp containment per tid; `depth` rides
+        in args for programmatic consumers."""
         pid = os.getpid()
         events = []
         for s in self.spans():
@@ -97,7 +149,7 @@ class Tracer:
             events.append({
                 "name": s.name,
                 "ph": "X",
-                "ts": s.start_ns / 1e3,
+                "ts": self.to_profiler_ns(s.start_ns) / 1e3,
                 "dur": s.dur_ns / 1e3,
                 "pid": pid,
                 "tid": s.thread_id,
@@ -111,15 +163,42 @@ class Tracer:
         return path
 
 
+class _Span:
+    """One open span of an active tracer; `with span(...) as sp` binds
+    it, and `sp.args` may be filled before the region ends."""
+
+    __slots__ = ("_tracer", "name", "args", "_start", "_depth")
+
+    def __init__(self, tracer: Tracer, name: str, args: dict):
+        self._tracer = tracer
+        self.name = name
+        self.args = args
+
+    def __enter__(self) -> "_Span":
+        self._depth = self._tracer._push()
+        self._start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.perf_counter_ns()
+        tracer = self._tracer
+        tracer._pop()
+        tracer.record(SpanRecord(self.name, self._start, end - self._start,
+                                 threading.get_ident(), self._depth,
+                                 self.args))
+        return False
+
+
+#: what span() returns while tracing is off (`as` binds None)
+_OFF = nullcontext()
 _active: Optional[Tracer] = None
 
 
-def start_tracing(max_spans: int = 100_000,
-                  profiler_annotations: bool = False) -> Tracer:
-    """Install (and return) the process tracer. Idempotent-ish: a second
-    call replaces the tracer (fresh buffer)."""
+def start_tracing(max_spans: int = 100_000) -> Tracer:
+    """Install (and return) the process tracer, with a fresh buffer and
+    anchor pair. Idempotent-ish: a second call replaces the tracer."""
     global _active
-    _active = Tracer(max_spans=max_spans, profiler_annotations=profiler_annotations)
+    _active = Tracer(max_spans=max_spans)
     return _active
 
 
@@ -138,37 +217,21 @@ def active_tracer() -> Optional[Tracer]:
     return _active
 
 
-@contextmanager
 def span(name: str, **args):
-    """Time a host-side region. No-op (and allocation-light) while
-    tracing is off; with `profiler_annotations` the region is also annotated
-    onto the profiler's timeline."""
+    """Time a host-side region: a context whose `as` binds the open span
+    (None, and nothing recorded or allocated, while tracing is off)."""
     tracer = _active
     if tracer is None:
-        yield
-        return
-    ann = None
-    if tracer.profiler_annotations:
-        try:
-            import torch
-            ann = torch.profiler.record_function(name)
-            ann.__enter__()
-        except Exception:
-            ann = None
-    depth = tracer._push()
-    start = time.perf_counter_ns()
-    try:
-        yield
-    finally:
-        dur = time.perf_counter_ns() - start
-        tracer._pop()
-        if ann is not None:
-            try:
-                ann.__exit__(None, None, None)
-            except Exception:
-                pass
-        tracer.record(SpanRecord(name, start, dur,
-                                 threading.get_ident(), depth, args))
+        return _OFF
+    return _Span(tracer, name, args)
+
+
+def add_span(name: str, start_ns: int, end_ns: int, **args) -> None:
+    """`Tracer.add` on the active tracer; nothing while tracing is
+    off."""
+    tracer = _active
+    if tracer is not None:
+        tracer.add(name, start_ns, end_ns, **args)
 
 
 def chrome_trace() -> dict:

@@ -7,8 +7,9 @@ on the CPU.
   histogram operations on both packages' registries renders the same
   Prometheus text and the same JSON snapshot, byte for byte.
 - Tracing: the same nested spans give the same Chrome-trace structure
-  (names, depths, nesting, args); the profiler bridge annotates through
-  `torch.profiler.record_function`.
+  (names, depths, nesting, args); a span converted to the profiler's
+  clock lies over the operation the profiler recorded inside it; off,
+  `span()` hands out one shared no-op and records nothing.
 - Device gauges: a host with no card registers `dl4j_device_count 0` and
   no memory gauges; `watch_jit_cache` aggregates live probes and reads -1
   when any probe reports its counter unavailable.
@@ -167,13 +168,68 @@ class TestTrace:
         with trace.span("off"):
             pass  # a no-op while tracing is off
 
-    def test_profiler_bridge_annotates_through_torch(self):
-        trace.start_tracing(profiler_annotations=True)
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU]) as prof:
-            with trace.span("bridged"):
-                torch.ones(4).sum()
-        assert "bridged" in {e.key for e in prof.key_averages()}
+    def test_span_lies_over_the_profiled_op_on_the_profilers_clock(self):
+        tracer = trace.start_tracing()
+        try:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU]) as prof:
+                with trace.span("op"):
+                    torch.ones(4).sum().item()
+        finally:
+            trace.stop_tracing()
+        start_ns = prof.profiler.kineto_results.trace_start_ns()
+        (rec,) = tracer.spans()
+        a = (tracer.to_profiler_ns(rec.start_ns) - start_ns) / 1e3
+        b = a + rec.dur_ns / 1e3
+        (op,) = [e.time_range for e in prof.events()
+                 if e.name == "aten::sum"]
+        # inside the span, which starts within 5 ms of the op
+        assert a <= op.start and op.end <= b
+        assert op.start - a < 5e3
+        # the Chrome export's ts is the same instant, in microseconds
+        tracer.record(rec)
+        ts = tracer.chrome_trace()["traceEvents"][0]["ts"]
+        assert abs(ts - (a + start_ns / 1e3)) < 1.0
+
+    def test_off_hands_out_one_noop_and_records_nothing(self):
+        import contextlib
+
+        assert not trace.tracing()
+        a, b = trace.span("a"), trace.span("b", rows=3)
+        assert a is b
+        assert not isinstance(a, contextlib._GeneratorContextManager)
+        with a as bound:
+            assert bound is None
+        trace.add_span("a", 1, 2)  # a no-op too
+        tracer = trace.start_tracing()
+        trace.stop_tracing()
+        with trace.span("after"):
+            pass
+        assert tracer.spans() == []
+
+    def test_add_span_nests_at_the_callers_depth(self):
+        import threading
+
+        tracer = trace.start_tracing()
+        try:
+            with trace.span("outer") as sp:
+                sp.args["rows"] = 2
+                t0 = time.perf_counter_ns()
+                t1 = time.perf_counter_ns()
+                trace.add_span("timed", t0, t1, k=1)
+        finally:
+            trace.stop_tracing()
+        timed, outer = tracer.spans()
+        assert (timed.name, timed.depth, timed.args) == ("timed", 1,
+                                                         {"k": 1})
+        assert (timed.start_ns, timed.dur_ns) == (t0, t1 - t0)
+        assert (outer.name, outer.depth, outer.args) == ("outer", 0,
+                                                         {"rows": 2})
+        assert timed.thread_id == outer.thread_id == threading.get_ident()
+        assert outer.start_ns <= t0 and t1 <= outer.start_ns + outer.dur_ns
+        # the anchor pair: perf_counter against the profiler's clock
+        now = tracer.to_profiler_ns(time.perf_counter_ns())
+        assert abs(now - trace.profiler_clock_ns()) < 50_000_000
 
 
 class TestDeviceGauges:
