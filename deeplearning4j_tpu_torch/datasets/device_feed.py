@@ -10,11 +10,21 @@ copies, the counterpart of the JAX package's `datasets/device_feed.py`.
    count. The same ladder and masking as the JAX package, so a stream
    meets the same few batch shapes.
 2. **Prefetch.** Up to `prefetch` upcoming batches are copied ahead of
-   the step: on a CUDA device each array is staged in pinned host memory
-   and copied with `non_blocking=True`, so the copy runs on the copy
-   engine while the current step computes (PyTorch's caching host
-   allocator keeps a pinned buffer until its copy has finished).
-3. **Per-rank feeding.** `sharding=` (a placement from
+   the step: on a CUDA device each array is filled into a pinned host
+   slot and copied with `non_blocking=True`, so the copy runs on the
+   copy engine while the current step computes.
+3. **Staging slots.** The pinned slots are kept across steps and feeds
+   in one process-wide `StagingPool`, keyed by (device, dtype, shape).
+   A fresh pinned copy a step fills its block through torch's intra-op
+   threads, which is slow when several ranks share a host's cores (four
+   data-parallel ranks on one 32-core H100 host: ~55 ms of a ~76 ms
+   step). A slot is filled by one `np.copyto` (single-threaded, outside
+   the interpreter lock) and refilled only after the CUDA event recorded
+   behind its copy has completed; a key holds at most `prefetch + 1`
+   slots, and the pool drops its least recently used keys beyond
+   `STAGING_KEYS`. The bytes copied are those a fresh pinned copy would
+   carry.
+4. **Per-rank feeding.** `sharding=` (a placement from
    `parallel.mesh.batch_sharding`) makes the feed yield only this rank's
    rows of each global batch: the batch is padded to its bucket on the
    host, sliced, and only the slice is copied. `align=` rounds every
@@ -23,7 +33,7 @@ copies, the counterpart of the JAX package's `datasets/device_feed.py`.
    tail of the global batch, so it lands on the last ranks, and a
    trainer computes its mask from global row indices
    (`feed_mask(..., offset=)`).
-4. **Resume.** `cursor` counts the batches handed out in the current
+5. **Resume.** `cursor` counts the batches handed out in the current
    pass; `fast_forward(n)` drops the first `n` source batches of the
    next pass without padding or copying them, so a resumed run starts
    at a checkpoint's within-epoch cursor (the guardian's `epoch_batch`).
@@ -31,15 +41,21 @@ copies, the counterpart of the JAX package's `datasets/device_feed.py`.
 Telemetry, the JAX package's series: `dl4j_feed_batches`,
 `dl4j_feed_padded_examples`, `dl4j_feed_bucket_hits{bucket=}` and the
 `dl4j_feed_prefetch_depth` gauge, process-wide twins of `stats()`
-(host counters; nothing is read from the device). Spans (telemetry/
+(host counters; nothing is read from the device), and on a CUDA device
+`dl4j_feed_staging_reused` / `dl4j_feed_staging_allocated`, the arrays
+staged through a kept slot and the slots pinned. Spans (telemetry/
 trace.py): `feed.fetch`, the source's next batch and its padding, and
-`feed.put`, the local slice, the pinning and the copy's enqueue.
+`feed.put` over one `feed.stage` (the local slice filled into its slot;
+on the CPU, the host tensor) and one `feed.copy` (the copy's enqueue
+and the event behind it) for each of the features, labels and count.
 """
 
 from __future__ import annotations
 
-from collections import deque
-from typing import Any, Iterator, NamedTuple, Optional, Sequence, Tuple
+import threading
+from collections import OrderedDict, deque
+from typing import (Any, Callable, Iterator, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -47,8 +63,8 @@ import torch
 from deeplearning4j_tpu_torch import default_device, telemetry
 from deeplearning4j_tpu_torch.telemetry.trace import span
 
-__all__ = ["FeedBatch", "DeviceFeed", "feed_mask", "pow2_buckets",
-           "bucket_for", "pad_rows", "DEFAULT_MIN_BUCKET"]
+__all__ = ["FeedBatch", "DeviceFeed", "StagingPool", "feed_mask",
+           "pow2_buckets", "bucket_for", "pad_rows", "DEFAULT_MIN_BUCKET"]
 
 # feed pipeline telemetry: process-wide twins of the per-feed stats()
 # counters, so bucket behavior and prefetch health show up in /metrics
@@ -62,12 +78,20 @@ _M_BUCKET = telemetry.counter(
 _M_QUEUE = telemetry.gauge(
     "dl4j_feed_prefetch_depth", "device_put transfers in flight ahead "
     "of the train step (last observed window size)")
+_M_REUSED = telemetry.counter(
+    "dl4j_feed_staging_reused", "batch arrays staged through a pinned "
+    "slot kept from an earlier copy")
+_M_ALLOCATED = telemetry.counter(
+    "dl4j_feed_staging_allocated", "pinned staging slots allocated")
 
 #: smallest bucket of the default ladder: tiny tail batches share one
 #: shape instead of one each
 DEFAULT_MIN_BUCKET = 8
 #: the end of a source's batches
 _END = object()
+#: (device, dtype, shape) keys the staging pool keeps: a full default
+#: ladder (features and labels a bucket, one count) with room to spare
+STAGING_KEYS = 32
 
 
 def feed_mask(n_rows: int, n_valid, device=None, offset: int = 0):
@@ -148,6 +172,96 @@ def _host_float(a) -> np.ndarray:
     return a.astype(np.float32) if a.dtype == np.float64 else a
 
 
+def _pinned(shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+class _Slot:
+    """A pinned host tensor, its numpy view, and the event recorded
+    behind the last copy out of it."""
+
+    __slots__ = ("host", "view", "event")
+
+    def __init__(self, host: torch.Tensor, event):
+        self.host, self.view, self.event = host, host.numpy(), event
+
+
+class StagingPool:
+    """Pinned host slots through which a feed copies each batch array to
+    its device, kept across steps and across feeds.
+
+    `put(a, device, depth)` fills a slot of `a`'s (device, dtype, shape)
+    with `a` and enqueues one non_blocking copy into a fresh device
+    tensor, with an event recorded on the device's current stream right
+    after it. The key's least recently used slot is refilled once its
+    event has completed (it is queried, and synchronized on only when
+    the key already holds `depth` slots); otherwise a new slot is
+    pinned. Keys beyond `max_keys` are dropped least recently used
+    first, each of their slots after its event. `alloc(shape, dtype)`
+    and `event()` make a slot's tensor and event (the tests pass fakes);
+    one lock covers a whole `put`, so feeds on two threads never share
+    a slot in flight."""
+
+    def __init__(self, max_keys: int = STAGING_KEYS,
+                 alloc: Callable[..., torch.Tensor] = _pinned,
+                 event: Optional[Callable[[], Any]] = None):
+        self.max_keys = max_keys
+        self._alloc = alloc
+        self._event = event or torch.cuda.Event
+        self._keys: "OrderedDict[tuple, deque]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def held(self) -> dict:
+        """{(device, dtype, shape): slots held}, least recently used
+        key first."""
+        with self._lock:
+            return {k: len(v) for k, v in self._keys.items()}
+
+    def _slot(self, key, a: np.ndarray, depth: int) -> Tuple[_Slot, bool]:
+        slots = self._keys.pop(key, None)
+        if slots is None:
+            slots = deque()
+        self._keys[key] = slots
+        while len(self._keys) > self.max_keys:
+            for old in self._keys.popitem(last=False)[1]:
+                if not old.event.query():
+                    old.event.synchronize()
+        done = bool(slots) and slots[0].event.query()
+        reused = done or len(slots) >= depth
+        if reused:
+            slot = slots.popleft()
+            if not done:
+                slot.event.synchronize()
+        else:
+            dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+            slot = _Slot(self._alloc(a.shape, dtype), self._event())
+        slots.append(slot)
+        return slot, reused
+
+    def put(self, a: np.ndarray, device: torch.device,
+            depth: int) -> Tuple[torch.Tensor, bool]:
+        """(`a` on `device`, whether a kept slot carried it). `depth`
+        bounds the slots of `a`'s key."""
+        with self._lock:
+            with span("feed.stage"):
+                slot, reused = self._slot((device, a.dtype, a.shape), a,
+                                          depth)
+                np.copyto(slot.view, a, casting="no")
+            with span("feed.copy"):
+                out = torch.empty(a.shape, dtype=slot.host.dtype,
+                                  device=device)
+                out.copy_(slot.host, non_blocking=True)
+                slot.event.record(torch.cuda.current_stream(device)
+                                  if device.type == "cuda" else None)
+        (_M_REUSED if reused else _M_ALLOCATED).inc()
+        return out, reused
+
+
+#: the process's staging pool: `DataParallelTrainer.fit` builds a feed
+#: a call, and its slots must outlive each one
+_STAGING = StagingPool()
+
+
 class DeviceFeed:
     """Wrap a DataSetIterator into a bucketed, prefetching device stream.
 
@@ -196,6 +310,10 @@ class DeviceFeed:
         #: checkpoint cursor reads as "batches consumed this epoch"
         self.cursor = 0
         self._skip_next = 0
+        #: pinned staging slots, on a CUDA device only
+        self._staging = _STAGING if self.device.type == "cuda" else None
+        self.staging_reused = 0
+        self.staging_allocated = 0
 
     # ------------------------------------------------------------ padding
     def _pad(self, ds) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -215,20 +333,28 @@ class DeviceFeed:
 
     def _put(self, padded) -> FeedBatch:
         f, l, n = padded
+        local = self.sharding.local if self.sharding is not None \
+            else (lambda a: a)
 
-        def put(t):
-            if self.device.type == "cuda":
-                return t.pin_memory().to(self.device, non_blocking=True)
-            return t.to(self.device)
+        def staged(a):
+            out, reused = self._staging.put(a, self.device,
+                                            self.prefetch + 1)
+            if reused:
+                self.staging_reused += 1
+            else:
+                self.staging_allocated += 1
+            return out
 
-        def host(a):
-            if self.sharding is not None:
-                a = self.sharding.local(a)
-            return torch.from_numpy(np.require(a, requirements=["C", "W"]))
+        def put(a):
+            with span("feed.stage"):
+                t = torch.from_numpy(np.require(a, requirements=["C", "W"]))
+            with span("feed.copy"):
+                return t.to(self.device)
 
+        move = put if self._staging is None else staged
         with span("feed.put"):
-            return FeedBatch(put(host(f)), put(host(l)),
-                             put(torch.tensor(n, dtype=torch.int32)))
+            return FeedBatch(move(local(f)), move(local(l)),
+                             move(np.asarray(n, dtype=np.int32)))
 
     # ---------------------------------------------------------- streaming
     def fast_forward(self, n: int) -> None:
@@ -289,7 +415,11 @@ class DeviceFeed:
     def stats(self) -> dict:
         """How many batches hit each bucket and how many padded
         (masked-out) rows were shipped."""
-        return {"buckets": list(self.buckets),
-                "bucket_hits": dict(self.bucket_hits),
-                "padded_examples": int(self.padded_examples),
-                "batches": int(self.batches)}
+        out = {"buckets": list(self.buckets),
+               "bucket_hits": dict(self.bucket_hits),
+               "padded_examples": int(self.padded_examples),
+               "batches": int(self.batches)}
+        if self._staging is not None:
+            out["staging_reused"] = self.staging_reused
+            out["staging_allocated"] = self.staging_allocated
+        return out

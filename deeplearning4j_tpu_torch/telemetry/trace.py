@@ -30,8 +30,9 @@ The spans in the port, each on the thread that does the work:
   `decode.replay` (the region `dl4j_decode_step_seconds` times) and
   `decode.emit`;
 - datasets/device_feed.py: `feed.fetch` (the source's next batch and its
-  padding) and `feed.put` (the local slice, pinning, the copy's
-  enqueue);
+  padding) and `feed.put` (the local slice to the device) over
+  `feed.stage` (an array filled into its pinned slot) and `feed.copy`
+  (the copy's enqueue), once for each array;
 - parallel/data_parallel.py: `parallel_train_step` over `dp.grads`,
   `dp.allreduce` and `dp.update`;
 - nn/multilayer.py `train_step`, `fit_scan`, `fit_scan_epoch`;

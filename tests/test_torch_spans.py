@@ -11,7 +11,9 @@ decode loop's tick, the device feed and the data-parallel step.
 - DataParallelTrainer at world 1 over its device feed: `dp.grads`,
   `dp.allreduce` and `dp.update` nest in order under each
   `parallel_train_step`, `feed.fetch` and `feed.put` run between the
-  steps, and the parameters are bit-equal with tracing on and off.
+  steps, each `feed.put` over `feed.stage`, `feed.copy` three times (the
+  features, labels and count), and the parameters are bit-equal with
+  tracing on and off.
 """
 
 from __future__ import annotations
@@ -127,6 +129,19 @@ class TestDecodeLoopSpans:
         assert sum(s.args["tokens"] for s in warm) == 3 + 6
 
 
+def _assert_put_children(spans, puts):
+    """Each `feed.put` holds, one level down and in order, a
+    `feed.stage` and a `feed.copy` for each of the features, labels and
+    count, and every such span lies in a put."""
+    kids = [s for s in spans if s.name in ("feed.stage", "feed.copy")]
+    for put in puts:
+        inner = sorted((s for s in kids if _inside(s, put)),
+                       key=lambda s: s.start_ns)
+        assert [s.name for s in inner] == ["feed.stage", "feed.copy"] * 3
+        assert all(s.depth == put.depth + 1 for s in inner)
+    assert len(kids) == 6 * len(puts)
+
+
 def _dp_rank(rank, tracing):
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.parallel import (DataParallelTrainer,
@@ -162,14 +177,16 @@ class TestTrainingSpans:
                            key=lambda s: s.start_ns)
             assert [s.name for s in inner] == ["dp.grads", "dp.allreduce",
                                                "dp.update"]
-        feed = [s for s in spans if s.name.startswith("feed.")]
+        feed = [s for s in spans if s.name in ("feed.fetch", "feed.put")]
         assert all(s.depth == 0 for s in feed)
         # a fetch a batch and the one that finds the end, a put a batch
         assert sum(s.name == "feed.fetch" for s in feed) == 2 * (3 + 1)
-        assert sum(s.name == "feed.put" for s in feed) == 2 * 3
+        puts = [s for s in feed if s.name == "feed.put"]
+        assert len(puts) == 2 * 3
+        _assert_put_children(spans, puts)
         assert {s.name for s in spans} == {
             "parallel_train_step", "dp.grads", "dp.allreduce", "dp.update",
-            "feed.fetch", "feed.put"}
+            "feed.fetch", "feed.put", "feed.stage", "feed.copy"}
 
     def test_feed_spans_cover_each_batch_and_fast_forward(self):
         x = np.arange(30, dtype=np.float32).reshape(10, 3)
@@ -191,4 +208,6 @@ class TestTrainingSpans:
         # the skipped batch is neither fetched in a span nor put
         assert names.count("feed.fetch") == 3
         assert names.count("feed.put") == 2
+        _assert_put_children(tracer.spans(), [
+            s for s in tracer.spans() if s.name == "feed.put"])
         assert feed.cursor == 3
