@@ -31,7 +31,7 @@ sys.path.insert(1, str(Path(__file__).resolve().parent.parent))
 
 def serve_controls(spec, seeds, seconds, device):
     from harness import serve
-    from reference import gpt2 as ref
+    from reference.fp8 import strict_float32
 
     mix = spec.traffic
     for seed in seeds:
@@ -42,9 +42,9 @@ def serve_controls(spec, seeds, seconds, device):
                               int(mix.get("sample_tokens", 512)))
         w["client"].cancel_rest()
         served.close()
-        ref.strict_float32()
+        strict_float32()
         params32 = served.reference_params()
-        gaps, judged = serve.widest_gaps(params32, served.dm["n_heads"],
+        gaps, judged = serve.widest_gaps(served.model, params32, served.dm,
                                          picked, ("float32", "fp8"))
         del params32
         print(json.dumps({"workload": spec.name, "seed": seed,

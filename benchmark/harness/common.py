@@ -7,8 +7,12 @@ A cell is found by name: `BENCHMARK.json` gives its configuration and
 traffic names, `configs/<config>.json` and `traffic/<traffic>.json`
 hold their numbers, `limits/<cell>.json` the limits its `correct` is
 judged by, and `metrics/<metric>.py` the reader of each per-layer
-metric. The traffic file's `kind` names the runner module under
-`harness/` that runs it.
+metric. The traffic file's `kind` names the runner that runs it,
+`harness/<kind>.py` (a module with a `run` function), and a served
+configuration's `model_type` names the module that makes its weights,
+its engine and its reference, `models/<model_type>.py` (the contract is
+in `models/__init__.py`). So a cell of a new kind or a new served model
+joins the benchmark by new files alone.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import importlib
 import importlib.util
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -28,8 +33,10 @@ ROOT = BENCH_DIR.parent
 #: compared by whole top-level name (the port's name begins with the
 #: JAX package's)
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "deeplearning4j_tpu")
-#: the runner module of each traffic kind
-RUNNERS = {"serve": "harness.serve", "train_dp": "harness.train_dp"}
+#: the runner of traffic kind <kind> is `harness/<kind>.py`
+HARNESS_DIR = BENCH_DIR / "harness"
+#: the served model of model_type <type> is `models/<type>.py`
+MODELS_DIR = BENCH_DIR / "models"
 
 
 class Spec:
@@ -86,18 +93,48 @@ def load_limits(workload: str) -> dict:
                       .read_text())
 
 
-def metric_reader(name: str):
-    """The `read(ctx)` function of `metrics/<name>.py`."""
-    path = BENCH_DIR / "metrics" / f"{name}.py"
+def _load(path: Path, prefix: str):
+    """The module of the file at `path`, loaded by its path."""
     spec = importlib.util.spec_from_file_location(
-        "metric_" + name.replace(".", "_").replace("-", "_"), path)
+        prefix + path.stem.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str):
+    """The `read(ctx)` function of `metrics/<name>.py`."""
+    return _load(BENCH_DIR / "metrics" / f"{name}.py", "metric_").read
+
+
+def runner_kinds() -> list:
+    """The traffic kinds that have a runner: each `harness/<kind>.py`
+    that defines a top-level `run`."""
+    return sorted(p.stem for p in HARNESS_DIR.glob("*.py")
+                  if re.search(r"^def run\(", p.read_text(), re.M))
 
 
 def runner(kind: str):
-    return importlib.import_module(RUNNERS[kind])
+    """The runner module of traffic kind `kind`, `harness/<kind>.py`;
+    exits naming the kinds there are when it has none."""
+    kinds = runner_kinds()
+    if kind not in kinds:
+        raise SystemExit(f"benchmark: no runner for traffic kind {kind!r}: "
+                         f"harness/ has runners {kinds}")
+    return importlib.import_module(f"harness.{kind}")
+
+
+def served_model(config: dict):
+    """The module of `models/<model_type>.py` for a served configuration
+    (its functions: `models/__init__.py`); exits naming the model files
+    there are when it has none."""
+    model_type = config.get("model_type")
+    have = sorted(p.stem for p in MODELS_DIR.glob("*.py")
+                  if p.stem != "__init__")
+    if model_type not in have:
+        raise SystemExit(f"benchmark: no served model for model_type "
+                         f"{model_type!r}: models/ has {have}")
+    return _load(MODELS_DIR / f"{model_type}.py", "served_model_")
 
 
 def forbidden_loaded(modules=None) -> list:

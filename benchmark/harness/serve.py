@@ -1,5 +1,7 @@
-"""Serving cells: the port's `InferenceEngine.for_transformer` with its
-continuous-batching `DecodeLoop`, driven by one client thread.
+"""Serving cells: the port's `InferenceEngine` with its continuous-batching
+`DecodeLoop`, driven by one client thread. The configuration's
+`model_type` names the module that makes the weights, the engine and
+the reference (`models/<model_type>.py`, `common.served_model`).
 
 The client submits through `generate_stream` and gives each stream a
 token queue that stamps every token with the host's clock as the
@@ -25,9 +27,8 @@ import time
 
 import torch
 
-from harness import common, traffic, weights
-from harness.lm import dims, transformer_config
-from reference import gpt2 as ref
+from harness import common, traffic
+from reference.fp8 import strict_float32
 
 #: seconds the client sleeps between sweeps of the live streams for the
 #: finished ones (tokens are stamped where they are queued)
@@ -177,18 +178,19 @@ def sample(client: Client, seed: int, want_tokens: int) -> list:
     return picked
 
 
-def widest_gaps(params32, n_heads: int, picked, precisions=("float32",)):
+def widest_gaps(model, params32, dims: dict, picked,
+                precisions=("float32",)):
     """For each precision, the widest gap over the sampled requests'
-    served tokens (see `reference.gpt2.served_gaps`), and the number of
-    served tokens judged."""
+    served tokens (`model.served_gaps`, `models/__init__.py`), and the
+    number of served tokens judged."""
     worst = {p: 0.0 for p in precisions}
     count = 0
     for r in picked:
         served = r.stream.result(timeout=0)
         ref_logits = None
         for p in precisions:
-            gaps, ref_logits = ref.served_gaps(
-                params32, n_heads, r.prompt.tolist(), served, p, ref_logits)
+            gaps, ref_logits = model.served_gaps(
+                params32, dims, r.prompt.tolist(), served, p, ref_logits)
             worst[p] = max(worst[p], float(gaps.max()))
         count += len(served)
         del ref_logits
@@ -203,10 +205,10 @@ class Served:
 
     def __init__(self, spec, seed: int, device, parts: dict):
         from deeplearning4j_tpu_torch import _build
-        from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
 
         cfg, mix = spec.config, spec.traffic
-        self.dm = dims(cfg)
+        self.model = common.served_model(cfg)
+        self.dm = self.model.dims(cfg)
         self.dtype = getattr(torch, cfg["torch_dtype"])
         self.serving = cfg["serving"]
         self.device, self.seed = device, seed
@@ -215,18 +217,12 @@ class Served:
             _build.library()
         parts["library_s"] = time.perf_counter() - t
         t = time.perf_counter()
-        params = weights.gpt2_params(self.dm, seed, device, self.dtype)
+        params = self.model.make_params(self.dm, seed, device, self.dtype)
         common.sync(device)
         parts["weights_s"] = time.perf_counter() - t
         t = time.perf_counter()
-        serve = self.serving
-        self.engine = InferenceEngine.for_transformer(
-            params, transformer_config(self.dm, self.dtype), device=device,
-            decode_slots=int(serve["slots"]),
-            page_size=int(serve["page_size"]),
-            kv_pages=int(serve["kv_pages"]),
-            prefix_cache=bool(serve.get("prefix_cache", True)),
-            horizon=int(serve.get("horizon", 1)))
+        self.engine = self.model.make_engine(params, self.dm, self.dtype,
+                                             device, self.serving)
         self.loop = self.engine.decode_loop
         self.loop.warm_programs({"cache_key": self.loop.cache_key,
                                  "step": True,
@@ -244,8 +240,8 @@ class Served:
     def reference_params(self):
         """The reference's float32 copy of the seed's weights, made
         anew."""
-        return weights.to_float32(weights.gpt2_params(
-            self.dm, self.seed, self.device, self.dtype))
+        return self.model.reference_params(self.dm, self.seed, self.device,
+                                           self.dtype)
 
 
 def drive(served: Served, mix: dict, seed: int, seconds: float,
@@ -309,9 +305,9 @@ def run(spec, args, device, t_start: float) -> dict:
         parts["trace_read_s"] = time.perf_counter() - t
 
     # the reference, on the program's freed memory
-    ref.strict_float32()
+    strict_float32()
     params32 = served.reference_params()
-    gaps, judged = widest_gaps(params32, served.dm["n_heads"], picked)
+    gaps, judged = widest_gaps(served.model, params32, served.dm, picked)
     del params32
     limits = spec.limits
     checks = {"requests_failed": common.check(stats["failed"], 0),

@@ -1,6 +1,6 @@
 """The check that JAX stayed out of the process compares whole
-top-level names, and the plain references import nothing of the
-program."""
+top-level names, the plain references import nothing of the program,
+and the serving harness imports nothing of one model."""
 
 import ast
 import subprocess
@@ -48,8 +48,29 @@ def test_reference_loads_without_the_program():
 def test_harness_run_loads_no_jax():
     code = ("import sys; sys.path[:0] = [%r, %r]; "
             "import harness.serve, harness.train_dp; "
-            "from harness import common; print(common.forbidden_loaded())"
+            "from harness import common; "
+            "common.served_model({'model_type': 'gpt2'}); "
+            "print(common.forbidden_loaded())"
             % (str(common.BENCH_DIR), str(common.ROOT)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True)
     assert out.stdout.strip() == "[]"
+
+
+def test_serving_harness_imports_no_model():
+    # a served model's weights, engine and reference come from its
+    # `models/<model_type>.py`, never from the harness itself
+    for rel in ("harness/serve.py", "control.py"):
+        text = (common.BENCH_DIR / rel).read_text()
+        for node in ast.walk(ast.parse(text)):
+            mods = []
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [f"{node.module}.{a.name}" for a in node.names]
+                mods.append(node.module or "")
+            for m in mods:
+                assert m not in ("harness.lm", "harness.weights",
+                                 "reference.gpt2"), (rel, m)
+        for word in ("gpt2", "for_transformer"):
+            assert word not in text, (rel, word)

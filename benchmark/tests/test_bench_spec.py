@@ -60,7 +60,18 @@ def test_cell_loads_by_name_and_reports_enough(cell):
     assert spec.per_layer
     moves = {m["moves"] for m in spec.per_layer}
     assert moves <= set(e2e)
-    assert spec.traffic["kind"] in common.RUNNERS
+    kind = spec.traffic["kind"]
+    assert (common.HARNESS_DIR / f"{kind}.py").is_file()
+    assert callable(common.runner(kind).run)
+    if kind == "serve":
+        model = common.served_model(spec.config)
+        assert (common.MODELS_DIR / f"{spec.config['model_type']}.py") \
+            .is_file()
+        for fn in ("dims", "make_params", "make_engine", "reference_params",
+                   "served_gaps"):
+            assert callable(getattr(model, fn)), fn
+        dm = model.dims(spec.config)
+        assert {"vocab_size", "max_len"} <= set(dm)
     assert spec.limits
     for m in spec.per_layer:
         assert callable(common.metric_reader(m["name"]))

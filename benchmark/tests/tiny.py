@@ -7,7 +7,7 @@ from harness import common
 
 BENCH = common.ROOT / "BENCHMARK.json"
 
-GPT_TINY = {"vocab_size": 512, "n_embd": 64, "n_head": 2, "n_layer": 2,
+GPT_TINY = {"model_type": "gpt2", "vocab_size": 512, "n_embd": 64, "n_head": 2, "n_layer": 2,
             "n_positions": 256, "torch_dtype": "float32",
             "serving": {"slots": 4, "page_size": 16, "kv_pages": 64,
                         "prefix_cache": True, "horizon": 1}}
